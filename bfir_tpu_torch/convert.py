@@ -1,0 +1,89 @@
+"""State and coefficients between ``bfir_tpu`` (as numpy) and this port.
+
+The port keeps the reference's layouts field for field, so a stream
+started in one package can resume in the other. ``*_from_numpy`` takes any
+object with the reference NamedTuple's fields holding numpy arrays (for
+example ``jax.tree_util.tree_map(np.asarray, state)``) and returns the
+port's NamedTuple of tensors on ``device``; ``*_to_numpy`` returns the
+port's NamedTuple holding numpy arrays, whose leaves flatten in the
+reference's order. ``blockcounter`` is an int32 scalar in the reference
+and a host int here. bf16 planes come back to numpy as float32 (numpy has
+no bfloat16; the widening is exact).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuState
+from bfir_tpu_torch.kernels.spectrum_mac import HcState, IntPlanes
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy (including ml_dtypes bfloat16) -> tensor on ``device``."""
+    a = np.array(a)  # a private, writable copy: steps update in place
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def planes_from_numpy(p, device):
+    """A plane set: an array, or IntPlanes-like (``hi``, ``lo``, ``scale``)."""
+    if hasattr(p, "hi"):
+        return IntPlanes(hi=tensor_from_numpy(p.hi, device),
+                         lo=(None if p.lo is None
+                             else tensor_from_numpy(p.lo, device)),
+                         scale=tensor_from_numpy(p.scale, device))
+    return tensor_from_numpy(p, device)
+
+
+def planes_to_numpy(p):
+    if isinstance(p, IntPlanes):
+        return IntPlanes(hi=tensor_to_numpy(p.hi),
+                         lo=None if p.lo is None else tensor_to_numpy(p.lo),
+                         scale=tensor_to_numpy(p.scale))
+    return tensor_to_numpy(p)
+
+
+def hc_state_from_numpy(st, device) -> HcState:
+    return HcState(ring=planes_from_numpy(st.ring, device),
+                   prev_block=tensor_from_numpy(st.prev_block, device),
+                   blockcounter=int(np.asarray(st.blockcounter)))
+
+
+def hc_state_to_numpy(st: HcState) -> HcState:
+    return HcState(ring=planes_to_numpy(st.ring),
+                   prev_block=tensor_to_numpy(st.prev_block),
+                   blockcounter=np.asarray(st.blockcounter, dtype=np.int32))
+
+
+def nu_state_from_numpy(st, device) -> NuState:
+    return NuState(head=hc_state_from_numpy(st.head, device),
+                   tail=hc_state_from_numpy(st.tail, device),
+                   inbuf=tensor_from_numpy(st.inbuf, device),
+                   pending=tensor_from_numpy(st.pending, device))
+
+
+def nu_state_to_numpy(st: NuState) -> NuState:
+    return NuState(head=hc_state_to_numpy(st.head),
+                   tail=hc_state_to_numpy(st.tail),
+                   inbuf=tensor_to_numpy(st.inbuf),
+                   pending=tensor_to_numpy(st.pending))
+
+
+def nu_coeffs_from_numpy(co, device) -> NuCoeffs:
+    return NuCoeffs(head=planes_from_numpy(co.head, device),
+                    tail=planes_from_numpy(co.tail, device))
+
+
+def nu_coeffs_to_numpy(co: NuCoeffs) -> NuCoeffs:
+    return NuCoeffs(head=planes_to_numpy(co.head),
+                    tail=planes_to_numpy(co.tail))

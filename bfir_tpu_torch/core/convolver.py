@@ -1,0 +1,132 @@
+"""Partitioned overlap-save FFT convolution: the uniform ``complex`` engine.
+
+Counterpart of ``bfir_tpu/core/convolver.py`` (brutefir.cpp:244-343): each
+N-block forms the 2N frame [previous block | block], its spectrum goes into
+a ring of the last P spectra (slot ``blockcounter % P``), the MAC sums
+``coeff[p] * ring[(blockcounter - p) mod P]`` over partitions, and the upper
+half of the inverse is the output. ``irfft`` carries the 1/n scale.
+
+``blockcounter`` is a host int and the ring insert updates the ring in
+place: a state passed to ``step`` must not be used again.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.ops import fft as F
+
+
+class ConvolverState(NamedTuple):
+    """spectra_ring [P, C, F] complex (slot ``blockcounter % P`` holds the
+    newest spectrum), prev_block [C, N] real, blockcounter a host int."""
+
+    spectra_ring: torch.Tensor
+    prev_block: torch.Tensor
+    blockcounter: int
+
+
+def init_state(spec: FilterSpec, n_channels: int, *, device) -> ConvolverState:
+    """Fresh zeroed state (reference reset(), brutefir.cpp:345-367): cold
+    partitions contribute exactly zero."""
+    rdt = getattr(torch, spec.dtype)
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    return ConvolverState(
+        spectra_ring=torch.zeros((spec.n_partitions, n_channels, spec.n_freq),
+                                 dtype=cdt, device=device),
+        prev_block=torch.zeros((n_channels, spec.block_length), dtype=rdt,
+                               device=device),
+        blockcounter=0,
+    )
+
+
+def coeffs_to_spectra(impulse, spec: FilterSpec, scale: float = 1.0, *,
+                      device) -> torch.Tensor:
+    """Per-partition spectra [P, C, F] of an impulse [taps] or [C, taps]
+    (each N-tap slice zero-padded to 2N; taps beyond P*N are dropped),
+    computed on the host in the engine dtype and moved to ``device``."""
+    dt = getattr(torch, spec.dtype)
+    h = torch.as_tensor(np.asarray(impulse), dtype=dt) * torch.tensor(scale, dtype=dt)
+    if h.ndim == 1:
+        h = h[None, :]
+    c, taps = h.shape
+    n, p = spec.block_length, spec.n_partitions
+    if taps > n * p:
+        h = h[:, : n * p]
+    else:
+        h = torch.nn.functional.pad(h, (0, n * p - taps))
+    parts = h.reshape(c, p, n).transpose(0, 1)
+    return F.rfft(parts, n=spec.n_fft).to(device)
+
+
+def _advance(state: ConvolverState, block: torch.Tensor):
+    """Frame spectrum into the ring (in place); returns (ring, prev, pos)."""
+    n = block.shape[-1]
+    frame = torch.cat([state.prev_block, block.to(state.prev_block.dtype)],
+                      dim=-1)
+    ring = state.spectra_ring
+    pos = state.blockcounter % ring.shape[0]
+    ring[pos] = F.rfft(frame)
+    return ring, frame[:, n:], pos
+
+
+def _mac_inverse(ring: torch.Tensor, coeff_spectra: torch.Tensor, pos: int,
+                 n: int) -> torch.Tensor:
+    p = ring.shape[0]
+    idx = torch.remainder(pos - torch.arange(p), p).to(ring.device)
+    y = (coeff_spectra * ring.index_select(0, idx)).sum(dim=0)
+    return F.irfft(y)[..., n:]
+
+
+def step(state: ConvolverState, coeff_spectra: torch.Tensor,
+         block: torch.Tensor) -> Tuple[ConvolverState, torch.Tensor]:
+    """One N-block through the partitioned convolver (one brutefir::run).
+    coeff_spectra: [P, C | 1, F] complex; block: [C, N]."""
+    n = block.shape[-1]
+    ring, prev, pos = _advance(state, block)
+    out = _mac_inverse(ring, coeff_spectra, pos, n)
+    return ConvolverState(ring, prev, state.blockcounter + 1), out
+
+
+def step_crossfade(state: ConvolverState, coeff_old: torch.Tensor,
+                   coeff_new: torch.Tensor,
+                   block: torch.Tensor) -> Tuple[ConvolverState, torch.Tensor]:
+    """One block during a filter change: both coefficient sets, linearly
+    crossfaded over the block (convolver_crossfade_inplace,
+    fftw_convolver.cpp:275-321)."""
+    n = block.shape[-1]
+    ring, prev, pos = _advance(state, block)
+    out_old = _mac_inverse(ring, coeff_old, pos, n)
+    out_new = _mac_inverse(ring, coeff_new, pos, n)
+    ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
+    out = out_old * (1.0 - ramp) + out_new * ramp
+    return ConvolverState(ring, prev, state.blockcounter + 1), out
+
+
+def process_blocks(state: ConvolverState, coeff_spectra: torch.Tensor,
+                   blocks: torch.Tensor) -> Tuple[ConvolverState, torch.Tensor]:
+    """``step`` over blocks [B, C, N] -> (state, out [B, C, N])."""
+    outs = []
+    for blk in blocks:
+        state, y = step(state, coeff_spectra, blk)
+        outs.append(y)
+    return state, torch.stack(outs)
+
+
+def direct_convolve_spectra(impulse_a, impulse_b,
+                            max_taps: Optional[int] = None,
+                            dtype=torch.float64) -> torch.Tensor:
+    """Compose two impulses by one full-length FFT convolution (what the
+    reference's block-wise preprocessor.cpp:33-233 computes)."""
+    a = torch.as_tensor(np.asarray(impulse_a), dtype=dtype)
+    b = torch.as_tensor(np.asarray(impulse_b), dtype=dtype)
+    out_len = a.shape[-1] + b.shape[-1] - 1
+    nfft = int(2 ** np.ceil(np.log2(max(out_len, 2))))
+    y = F.irfft(F.rfft(a, n=nfft) * F.rfft(b, n=nfft), n=nfft)[..., :out_len]
+    if max_taps is not None:
+        y = y[..., :max_taps]
+    return y

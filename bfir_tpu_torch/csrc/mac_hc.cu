@@ -1,0 +1,164 @@
+// Halfcomplex ring MAC for Hopper (sm_90a): kernels K1, K2 and K3 of the port.
+//
+// Replaces bfir_tpu/kernels/spectrum_mac.py::mac_pallas_hc (K1),
+// ::mac_pallas_hc_tiled (K2) and ::mac_pallas_hc_tiled_int (K3).
+//
+//   y[c, k] = sum_p coeff[p, c, k] * ring[(pos - p) mod P, c, k]
+//
+// on split planes [P, 2C, Hp] (re rows 0..C-1, im rows C..2C-1). Lane 0
+// carries (DC.re, Nyquist.re), so its product is two real products, not a
+// complex one. Shared coefficients are [P, 2, Hp], read for every channel.
+//
+// What bounds it on the H100: device-memory bandwidth. Per partition and
+// lane it reads four plane values and does eight flops, about half a flop
+// per byte in float32, forty times under the card's float32 ridge. At the
+// two-stage tail (14 x 128 x 8192 ring and coefficients) one call streams
+// about 117 MB in float32 and 88 MB in int24.
+//
+// Design: one thread owns four neighbouring lanes of one channel and loads
+// them as one 16-byte (float32) or 8-byte (bf16, int16) vector, so a warp
+// reads contiguous rows. The TPU kernel's sequential partition grid axis
+// becomes a loop inside the thread with the sums in registers, and each
+// output is written once. Storage decodes in registers: bf16 widens,
+// int24 is (hi * 256 + lo) * scale and int16 is hi * scale, with the row's
+// scale read from column 0 of its [.., 128] scale plane. Accumulation is
+// float32 for every storage. The TPU kernel's frequency tiling only fitted
+// VMEM; here the grid tiles frequency for parallelism instead.
+// Left for later work: shared coefficients are re-read per channel through
+// L2 rather than staged once in shared memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+enum Kind { kF32 = 0, kBF16 = 1, kI24 = 2, kI16 = 3 };
+
+constexpr int kThreads = 64;
+
+struct Planes {
+  const void* a;       // float32 / bf16 values, or the int16 high part
+  const uint8_t* lo;   // int24 low byte (kI24 only)
+  const float* scale;  // [rows, 128] per-row scale (kI24 / kI16 only)
+};
+
+template <int K>
+__device__ __forceinline__ float4 load4(const Planes& pl, long long row,
+                                        int hp, int lane) {
+  const long long off = row * hp + lane;
+  if constexpr (K == kF32) {
+    return __ldg(reinterpret_cast<const float4*>(
+        static_cast<const float*>(pl.a) + off));
+  } else if constexpr (K == kBF16) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(pl.a) + off));
+    const float2 f0 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 f1 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(f0.x, f0.y, f1.x, f1.y);
+  } else {
+    const float s = __ldg(pl.scale + row * 128);
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const int16_t*>(pl.a) + off));
+    int q0 = static_cast<int16_t>(u.x & 0xffffu);
+    int q1 = static_cast<int16_t>(u.x >> 16);
+    int q2 = static_cast<int16_t>(u.y & 0xffffu);
+    int q3 = static_cast<int16_t>(u.y >> 16);
+    if constexpr (K == kI24) {
+      const unsigned int l =
+          __ldg(reinterpret_cast<const unsigned int*>(pl.lo + off));
+      q0 = q0 * 256 + static_cast<int>(l & 0xffu);
+      q1 = q1 * 256 + static_cast<int>((l >> 8) & 0xffu);
+      q2 = q2 * 256 + static_cast<int>((l >> 16) & 0xffu);
+      q3 = q3 * 256 + static_cast<int>(l >> 24);
+    }
+    return make_float4(static_cast<float>(q0) * s, static_cast<float>(q1) * s,
+                       static_cast<float>(q2) * s, static_cast<float>(q3) * s);
+  }
+}
+
+__device__ __forceinline__ void cmac(float& ar, float& ai, float cr, float ci,
+                                     float rr, float ri) {
+  ar += cr * rr - ci * ri;
+  ai += cr * ri + ci * rr;
+}
+
+template <int RK, int CK>
+__global__ void __launch_bounds__(kThreads)
+    mac_hc_kernel(Planes ring, Planes coeff, float* __restrict__ yr,
+                  float* __restrict__ yi, int P, int C, int Cs, int hp,
+                  int pos) {
+  const int lane = (blockIdx.x * kThreads + threadIdx.x) * 4;
+  const int c = blockIdx.y;
+  if (lane >= hp) return;
+  const int cc = Cs == 1 ? 0 : c;
+  float4 ar = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 ai = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p = 0; p < P; ++p) {
+    int slot = pos - p;
+    if (slot < 0) slot += P;
+    const long long r_row = static_cast<long long>(slot) * 2 * C + c;
+    const long long c_row = static_cast<long long>(p) * 2 * Cs + cc;
+    const float4 rr = load4<RK>(ring, r_row, hp, lane);
+    const float4 ri = load4<RK>(ring, r_row + C, hp, lane);
+    const float4 cr = load4<CK>(coeff, c_row, hp, lane);
+    const float4 ci = load4<CK>(coeff, c_row + Cs, hp, lane);
+    if (lane == 0) {  // (DC.re, Nyquist.re): two real products
+      ar.x += cr.x * rr.x;
+      ai.x += ci.x * ri.x;
+    } else {
+      cmac(ar.x, ai.x, cr.x, ci.x, rr.x, ri.x);
+    }
+    cmac(ar.y, ai.y, cr.y, ci.y, rr.y, ri.y);
+    cmac(ar.z, ai.z, cr.z, ci.z, rr.z, ri.z);
+    cmac(ar.w, ai.w, cr.w, ci.w, rr.w, ri.w);
+  }
+  const long long o = static_cast<long long>(c) * hp + lane;
+  *reinterpret_cast<float4*>(yr + o) = ar;
+  *reinterpret_cast<float4*>(yi + o) = ai;
+}
+
+template <int RK, int CK>
+void launch(const Planes& r, const Planes& g, float* yr, float* yi, int P,
+            int C, int Cs, int hp, int pos, cudaStream_t s) {
+  const dim3 grid((hp / 4 + kThreads - 1) / kThreads, C);
+  mac_hc_kernel<RK, CK><<<grid, kThreads, 0, s>>>(r, g, yr, yi, P, C, Cs, hp,
+                                                 pos);
+}
+
+}  // namespace
+
+// Launches the MAC on ``stream``; returns the cudaError_t of the launch.
+// r_kind / c_kind: 0 float32, 1 bf16, 2 int24, 3 int16 (float kinds pair
+// with float kinds, integer kinds with integer kinds). 0 <= pos < P.
+extern "C" int bfir_mac_hc(const void* r_a, const void* r_lo,
+                           const float* r_scale, int r_kind, const void* c_a,
+                           const void* c_lo, const float* c_scale, int c_kind,
+                           float* yr, float* yi, int P, int C, int Cs, int hp,
+                           int pos, void* stream) {
+  if (P < 1 || C < 1 || (Cs != 1 && Cs != C) || hp < 4 || hp % 4 ||
+      pos < 0 || pos >= P)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Planes r{r_a, static_cast<const uint8_t*>(r_lo), r_scale};
+  const Planes g{c_a, static_cast<const uint8_t*>(c_lo), c_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r_kind * 4 + c_kind) {
+    case kF32 * 4 + kF32: launch<kF32, kF32>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kF32 * 4 + kBF16: launch<kF32, kBF16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kBF16 * 4 + kF32: launch<kBF16, kF32>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kBF16 * 4 + kBF16: launch<kBF16, kBF16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kI24 * 4 + kI24: launch<kI24, kI24>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kI24 * 4 + kI16: launch<kI24, kI16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kI16 * 4 + kI24: launch<kI16, kI24>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kI16 * 4 + kI16: launch<kI16, kI16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* bfir_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

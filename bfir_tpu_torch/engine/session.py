@@ -1,0 +1,565 @@
+"""Streaming session: ``StreamProcessor`` on PyTorch.
+
+Counterpart of ``bfir_tpu/engine/session.py`` (the plugin's DSP object,
+foo_dsp_bfir.cpp:76-410) for the ``complex``, ``hc`` and ``nonuniform``
+engines: lazy (re)initialization on a format change, chain build,
+re-blocking into N-frame blocks, the NaN/Inf abort to passthrough,
+overflow accounting, glitch-free ``reconfigure`` crossfades, and
+``process_buffer`` for bulk input.
+
+The device is explicit: ``StreamProcessor(config, *, device="cuda")`` runs
+the CUDA kernels and raises if CUDA is missing; ``device="cpu"`` runs their
+plain versions. Where this session diverges from the reference:
+
+- no engine fall-through: a kernel build or launch error, or a refused
+  known-answer self-check, propagates (the reference catches every
+  exception and tries the next engine). A chain that fails to build (a bad
+  impulse file) still passes the stream through, as the reference does;
+- the short-filter rule (two-stage -> ``hc`` when the head alone covers
+  the filter) is decided from the geometry before building;
+- ``engine_mode="auto"`` picks ``nonuniform`` for 32 partitions or more on
+  CUDA, including the reference's three-stage range (not ported yet);
+- engine modes, delay lines, ``render`` and ``process_raw`` that are not
+  ported raise ``NotImplementedError`` naming their ROADMAP item;
+- the block counter is a host int, so no block waits on the device to
+  learn its phase.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from bfir_tpu.core.spec import EngineConfig, FilterSpec, StreamSpec
+from bfir_tpu.engine.cache import ArtifactCache
+from bfir_tpu.utils.logging import pinfo
+from bfir_tpu.utils.profiling import BlockTimer
+from bfir_tpu_torch.core import convolver as cv
+from bfir_tpu_torch.core import nonuniform as NU
+from bfir_tpu_torch.engine import selfcheck
+from bfir_tpu_torch.engine.chain import build_chain
+from bfir_tpu_torch.kernels import spectrum_mac as K
+from bfir_tpu_torch.ops import dither as dth
+from bfir_tpu_torch.ops import formats as fm
+
+_NOT_PORTED = {
+    "nonuniform_split": "ROADMAP Queue 1 #1 (split-tail schedule)",
+    "nonuniform3": "ROADMAP Queue 1 #2 (three-stage engine)",
+    "packed": "ROADMAP Queue 1 #3 (packed engine)",
+    "extended": "ROADMAP Queue 1 #4 (extended precision as float64)",
+    "delay": "ROADMAP Queue 1 #6 (delay lines)",
+    "render": "ROADMAP Queue 1 #7 (offline render)",
+    "process_raw": "ROADMAP Queue 1 #5 (output stage)",
+    "sharded": "ROADMAP Queue 1 #9 (multi-GPU)",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to bfir_tpu_torch yet: "
+                               f"{_NOT_PORTED[what]}")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; CUDA must be present when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cpu or cuda, got {device!r}")
+    return dev
+
+
+def _check_config(config: EngineConfig) -> None:
+    if config.engine_mode in _NOT_PORTED:
+        raise _not_ported(config.engine_mode)
+    if config.delay.enabled:
+        raise _not_ported("delay")
+
+
+def _scan(step, state, coeffs, blocks: torch.Tensor):
+    """``step`` over blocks [B, C, N] -> (state, out [B, C, N])."""
+    outs = []
+    for blk in blocks:
+        state, y = step(state, coeffs, blk)
+        outs.append(y)
+    return state, torch.stack(outs)
+
+
+class StreamProcessor:
+    # maximum blocks stepped ahead of their output fetch
+    MAX_INFLIGHT = 64
+
+    def __init__(self, config: EngineConfig,
+                 cache: Optional[ArtifactCache] = None, *, device):
+        _check_config(config)
+        self.device = resolve_device(device)
+        self.config = config
+        self.cache = cache or ArtifactCache()
+        self._channels = 0
+        self._rate = 0
+        self._active = False
+        self._failed = False
+        self._state = None
+        self._coeffs = None
+        self._pending = None  # np [C, <N] partial input block
+        self._lock = threading.RLock()
+        self._pending_swap = None
+        self._impl = "complex"
+        self._step = None
+        self._init_state = None
+        self._nuspec = None
+        self._nu_old = None  # old coeffs during a two-stage crossfade
+        self._overflow = None
+        self._last_overflow = None
+        self.reported_latency = 0  # parity: foo_dsp_bfir.cpp:372-375
+        self.n_partitions = 0
+        self.block_timer = BlockTimer()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    @property
+    def algorithmic_latency(self) -> int:
+        return self.config.filter.block_length
+
+    def reconfigure(self, config: EngineConfig) -> None:
+        """Swap the config snapshot. When the new chain keeps the engine
+        geometry, the next block crossfades from the old filter to the new
+        one; otherwise the engine rebuilds at the next block."""
+        with self._lock:
+            self._reconfigure_locked(config)
+
+    def _reconfigure_locked(self, config: EngineConfig) -> None:
+        _check_config(config)
+        old_cfg = self.config
+        self.config = config
+        self._failed = False
+        if not self._channels or not self._active:
+            self._channels = 0  # full (re)build on next process()
+            return
+        same_geom = (
+            config.filter.block_length == old_cfg.filter.block_length
+            and config.filter.dtype == old_cfg.filter.dtype
+            and config.stream.apply_dither == old_cfg.stream.apply_dither
+            and config.nu_tail_store == old_cfg.nu_tail_store
+            and config.nu_head_store == old_cfg.nu_head_store)
+        if not same_geom:
+            self._channels = 0
+            return
+        stream = StreamSpec(
+            n_channels=self._channels, sample_rate=self._rate,
+            in_format=config.stream.in_format,
+            out_format=config.stream.out_format,
+            apply_dither=config.stream.apply_dither)
+        try:
+            built = build_chain(config, stream, self.cache)
+        except Exception as e:  # a bad impulse file: pass through (parity)
+            pinfo("Chain rebuild failed (%s); passing through.", e)
+            self._active = False
+            return
+        if built.impulse is None or built.n_partitions != self.n_partitions:
+            self._channels = 0  # geometry changed (or chain gone): rebuild
+            self._pending_swap = None
+            if built.impulse is None:
+                self._active = False
+            return
+        self._pending_swap = self._build_coeffs(built)
+
+    def reset(self) -> None:
+        """brutefir::reset (brutefir.cpp:345-367): clear all running state."""
+        if self._channels and self._init_state is not None:
+            self._init_runtime_state()
+
+    def _resolve_nu_tail_store(self, engine: str) -> str:
+        """nu_tail_store="auto": int24 for the two-stage engine on CUDA,
+        float32 otherwise (the CPU gains nothing from compressed storage)."""
+        v = self.config.nu_tail_store
+        if v != "auto":
+            return v
+        if engine == "nonuniform" and self.device.type == "cuda":
+            return "int24"
+        return "float32"
+
+    def _resolve_engine_mode(self) -> str:
+        mode = self.config.engine_mode
+        if mode != "auto":
+            return mode
+        if self.device.type == "cpu":
+            return "complex"
+        if self.config.filter.dtype == "float64":
+            return "extended"  # the kernels store float32 or narrower
+        if self.n_partitions >= 32:
+            return "nonuniform"
+        return "hc"
+
+    def _nu_geometry(self, fspec: FilterSpec) -> NU.NuSpec:
+        n = fspec.block_length
+        return NU.nu_geometry(
+            fspec.n_partitions * n, n, ratio=8, dtype=fspec.dtype,
+            tail_store=self._resolve_nu_tail_store("nonuniform"),
+            head_store=self.config.nu_head_store)
+
+    def _init_runtime_state(self) -> None:
+        fspec = self._runtime_filter_spec
+        self._state = self._init_state()
+        self._nu_old = None
+        self._pending = np.zeros((self._channels, 0), dtype=fspec.dtype)
+        self._overflow = dth.init_overflow_stats(
+            self._channels, dtype=getattr(torch, fspec.dtype),
+            device=self.device)
+        self._last_overflow = self.overflow_stats()
+
+    @staticmethod
+    def _impulse_shared(impulse) -> bool:
+        """True when every channel carries the same filter: the MAC kernels
+        then read one [P, 2, Hp] coefficient plane set for all channels."""
+        imp = np.asarray(impulse)
+        return imp.ndim == 2 and imp.shape[0] > 1 and bool(
+            (imp == imp[:1]).all())
+
+    def _initialize(self, n_channels: int, rate: int) -> None:
+        if self._channels:
+            pinfo("Reinitializing filter.")
+        self._pending_swap = None  # a queued crossfade is void after rebuild
+        self._active = False
+        self._channels = n_channels
+        self._rate = rate
+        stream = StreamSpec(
+            n_channels=n_channels, sample_rate=rate,
+            in_format=self.config.stream.in_format,
+            out_format=self.config.stream.out_format,
+            apply_dither=self.config.stream.apply_dither)
+        try:
+            built = build_chain(self.config, stream, self.cache)
+        except Exception as e:  # degrade to passthrough (foo_dsp_bfir.cpp:352-357)
+            pinfo("Chain build failed (%s); passing through.", e)
+            return
+        if built.impulse is None:
+            return
+        self.n_partitions = built.n_partitions
+        impl = self._resolve_engine_mode()
+        if impl in _NOT_PORTED:
+            self._channels = 0
+            raise _not_ported(impl)
+        if impl == "nonuniform":
+            fspec = self._runtime_filter_spec
+            if fspec.n_partitions <= self._nu_geometry(fspec).p_head:
+                impl = "hc"  # the head alone covers the filter
+        try:
+            self._build_impl(impl, built, n_channels)
+        except BaseException:
+            self._channels = 0  # the next call builds (and fails) again
+            raise
+        self._active = True
+        fspec = self._runtime_filter_spec
+        pinfo("Filter length: %u samples, %u blocks.",
+              fspec.block_length, fspec.n_partitions)
+        pinfo("Format: %u channels, %u Hz.", n_channels, rate)
+
+    def _build_coeffs(self, built):
+        """Coefficient planes of ``built`` for the current engine, on the
+        device."""
+        fspec = self._runtime_filter_spec
+        precise = self.config.filter.dtype == "float64"
+        shared = self._impulse_shared(built.impulse)
+        if self._impl == "hc":
+            return K.hc_coeffs(built.impulse, fspec, self._channels,
+                               scale=built.scale, precise=precise,
+                               shared=shared, device=self.device)
+        if self._impl == "nonuniform":
+            return NU.nu_coeffs(built.impulse, self._nuspec, self._channels,
+                                scale=built.scale, precise=precise,
+                                shared=shared, device=self.device)
+        return cv.coeffs_to_spectra(built.impulse, fspec, scale=built.scale,
+                                    device=self.device)
+
+    def _build_impl(self, impl: str, built, n_channels: int) -> None:
+        """Coefficients, step and state for one engine, then (unless
+        disabled) the known-answer self-check through that exact step."""
+        self._impl = impl
+        self._nu_old = None
+        self._nuspec = None
+        fspec = self._runtime_filter_spec
+        dev = self.device
+        if impl == "nonuniform":
+            nuspec = self._nu_geometry(fspec)
+            self._nuspec = nuspec
+            self._step = NU.step_nu
+            self._init_state = lambda: NU.init_nu_state(nuspec, n_channels,
+                                                        device=dev)
+            pinfo("Engine: non-uniform partitions (head %u x %u + tail "
+                  "%u x %u, tail store %s).", nuspec.p_head,
+                  nuspec.block_length, nuspec.p_tail, nuspec.m,
+                  nuspec.tail_store)
+        elif impl == "hc":
+            self._step = K.step_hc
+            self._init_state = lambda: K.init_hc_state(fspec, n_channels,
+                                                       device=dev)
+        else:
+            self._step = cv.step
+            self._init_state = lambda: cv.init_state(fspec, n_channels,
+                                                     device=dev)
+        self._coeffs = self._build_coeffs(built)
+        if self.config.self_check:
+            scaled = np.asarray(built.impulse, dtype=np.float64) * built.scale
+            n_blocks, extra = 3, ""
+            min_snr = selfcheck.DEFAULT_MIN_SNR_DB
+            if impl == "nonuniform":
+                # the tail reaches the output only after (D + 1) fires
+                n_blocks = (self._nuspec.delay_blocks + 2) * self._nuspec.ratio
+                extra = repr(self._nuspec)
+                if self._nuspec.tail_store == "bfloat16":
+                    min_snr = 35.0  # the bf16 tier's documented class
+            selfcheck.check_stream(
+                self._step, self._init_state, self._coeffs, scaled, fspec,
+                n_channels, device=dev, n_blocks=n_blocks,
+                min_snr_db=min_snr, label=f"engine '{impl}'",
+                cache_file=self.cache.path("selfcheck-cache.json"),
+                cache_extra=extra)
+        self._init_runtime_state()
+
+    @property
+    def _runtime_filter_spec(self) -> FilterSpec:
+        """The filter spec with the partition count the chain implies
+        (foo_dsp_bfir.cpp:270-272)."""
+        return FilterSpec(block_length=self.config.filter.block_length,
+                          n_partitions=max(1, self.n_partitions),
+                          dtype=self.config.filter.dtype)
+
+    def _nu_phase(self) -> int:
+        """Current block phase within the tail's M-block cycle."""
+        return self._state.head.blockcounter % self._nuspec.ratio
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # -- streaming ----------------------------------------------------------
+
+    def process(self, frames: np.ndarray,
+                sample_rate: Optional[int] = None) -> np.ndarray:
+        """Push ``frames`` [C, T] (engine float domain, +-1 full scale);
+        returns the filtered frames of completed blocks (possibly fewer than
+        T; the remainder is held until the next call). Passthrough when no
+        chain is active or after a NaN abort. Thread-safe against
+        ``reconfigure``."""
+        with self._lock:
+            return self._process_locked(frames, sample_rate)
+
+    def _drain_inflight(self, inflight, outs, keep: int = 0) -> bool:
+        """Fetch stepped block outputs in order (down to ``keep`` still
+        pending) with one device-to-host copy, NaN-guarding each block.
+        Returns False on a NaN abort: the offending block and every later
+        stepped block pass through as their raw inputs."""
+        k = len(inflight) - keep
+        if k <= 0:
+            return True
+        batch = inflight[:k]
+        del inflight[:k]
+        host = torch.cat([dev for _, dev in batch], dim=1).cpu().numpy()
+        n = self.config.filter.block_length
+        for i, (blk_np, dev) in enumerate(batch):
+            out_np = host[:, i * n:(i + 1) * n]
+            if not np.isfinite(out_np[0, 0]):
+                pinfo("NaN or Inf values in the system! Invalid input? Aborting.")
+                self._failed = True
+                outs.append(blk_np)
+                outs.extend(b for b, _ in batch[i + 1:])
+                outs.extend(b for b, _ in inflight)
+                inflight.clear()
+                return False
+            if self.config.stream.out_format.isfloat:
+                self._overflow = fm.count_float_overflow(dev, self._overflow)
+            outs.append(out_np)
+            if self.config.overflow_warnings:
+                self.check_overflows()
+        return True
+
+    def _special_step(self, swap, block: torch.Tensor) -> torch.Tensor:
+        """A crossfade block: the filter change itself, or a two-stage
+        transition block waiting for its bridging tail fire."""
+        if self._impl == "nonuniform":
+            # the head ramps in-block now; the tail bridges at its first
+            # fire after the change (core.nonuniform.step_nu_crossfade). A
+            # second change before that fire keeps the tail's old side at
+            # the coefficients that produced the queued pending blocks.
+            fired = self._nu_phase() == self._nuspec.ratio - 1
+            if swap is not None:
+                self._pending_swap = None
+                old = (self._coeffs if self._nu_old is None
+                       else self._nu_old._replace(head=self._coeffs.head))
+                self._state, out = NU.step_nu_crossfade(
+                    self._state, old, swap, block, head_ramp=True)
+                self._nu_old = None if fired else old
+                self._coeffs = swap
+            else:
+                self._state, out = NU.step_nu_crossfade(
+                    self._state, self._nu_old, self._coeffs, block,
+                    head_ramp=False)
+                if fired:
+                    self._nu_old = None
+            return out
+        self._pending_swap = None
+        xfade = K.step_hc_crossfade if self._impl == "hc" else cv.step_crossfade
+        self._state, out = xfade(self._state, self._coeffs, swap, block)
+        self._coeffs = swap
+        return out
+
+    def _process_locked(self, frames, sample_rate=None) -> np.ndarray:
+        frames = np.atleast_2d(np.asarray(frames))
+        rate = sample_rate or self._rate or self.config.stream.sample_rate
+        if frames.shape[0] != self._channels or rate != self._rate:
+            self._initialize(frames.shape[0], rate)
+        if not self._active or self._failed:
+            return frames
+        n = self.config.filter.block_length
+        buf = np.concatenate([self._pending,
+                              frames.astype(self._pending.dtype)], axis=1)
+        outs = []
+        # plain blocks are stepped ahead of their fetch; outputs come back
+        # in bursts, so the device-to-host copies do not stall every block
+        inflight = []  # [(raw block, device out)] stepped, not fetched
+        t_pipe0 = None
+        n_pipe = 0
+        while buf.shape[1] >= n:
+            block, buf = buf[:, :n], buf[:, n:]
+            swap = self._pending_swap
+            if swap is None and self._nu_old is None:
+                if t_pipe0 is None:
+                    t_pipe0 = time.perf_counter()
+                n_pipe += 1
+                self._state, out = self._step(self._state, self._coeffs,
+                                              self._to_device(block))
+                inflight.append((block, out))
+                if len(inflight) >= self.MAX_INFLIGHT:
+                    if not self._drain_inflight(inflight, outs,
+                                                keep=self.MAX_INFLIGHT // 2):
+                        self._pending = buf[:, :0]
+                        return np.concatenate(outs, axis=1)
+                continue
+            # crossfade block: flush the pipeline, then step synchronously
+            n_burst = len(inflight)
+            ok = self._drain_inflight(inflight, outs)
+            if n_burst and t_pipe0 is not None:
+                per_block = (time.perf_counter() - t_pipe0) / n_burst
+                for _ in range(n_burst):
+                    self.block_timer.add(per_block)
+                t_pipe0 = None
+                n_pipe = 0
+            if not ok:
+                self._pending = buf[:, :0]
+                return np.concatenate(outs, axis=1)
+            with self.block_timer.measure():
+                out = self._special_step(swap, self._to_device(block))
+                out_np = out.cpu().numpy()
+            if not np.isfinite(out_np[0, 0]):  # brutefir.cpp:313-321
+                pinfo("NaN or Inf values in the system! Invalid input? Aborting.")
+                self._failed = True
+                self._pending = buf[:, :0]
+                return np.concatenate(outs + [block], axis=1) if outs else block
+            if self.config.stream.out_format.isfloat:
+                self._overflow = fm.count_float_overflow(out, self._overflow)
+            outs.append(out_np)
+            if self.config.overflow_warnings:
+                self.check_overflows()
+        ok = self._drain_inflight(inflight, outs)
+        if n_pipe and t_pipe0 is not None:
+            per_block = (time.perf_counter() - t_pipe0) / n_pipe
+            for _ in range(n_pipe):
+                self.block_timer.add(per_block)
+        if not ok:
+            self._pending = buf[:, :0]
+            return np.concatenate(outs, axis=1) if outs else frames[:, :0]
+        self._pending = buf
+        if not outs:
+            return frames[:, :0]
+        return np.concatenate(outs, axis=1)
+
+    def process_buffer(self, frames: np.ndarray,
+                       sample_rate: Optional[int] = None) -> np.ndarray:
+        """Bulk variant of ``process``: all complete blocks in one call,
+        with the two-stage engine's M-cycle step on aligned input (same
+        outputs as the block loop). The partial tail is held like
+        ``process``."""
+        with self._lock:
+            return self._process_buffer_locked(frames, sample_rate)
+
+    def _process_buffer_locked(self, frames, sample_rate=None) -> np.ndarray:
+        frames = np.atleast_2d(np.asarray(frames))
+        rate = sample_rate or self._rate or self.config.stream.sample_rate
+        if frames.shape[0] != self._channels or rate != self._rate:
+            self._initialize(frames.shape[0], rate)
+        if not self._active or self._failed:
+            return frames
+        # a queued crossfade needs the block loop
+        if self._pending_swap is not None or self._nu_old is not None:
+            return self._process_locked(frames, sample_rate)
+        n = self.config.filter.block_length
+        buf = np.concatenate([self._pending,
+                              frames.astype(self._pending.dtype)], axis=1)
+        n_blocks = buf.shape[1] // n
+        if n_blocks == 0:
+            self._pending = buf
+            return frames[:, :0]
+        c = buf.shape[0]
+        blocks = buf[:, : n_blocks * n].reshape(c, n_blocks, n).transpose(1, 0, 2)
+        self._pending = buf[:, n_blocks * n:]
+        if self._impl == "nonuniform":
+            aligned = (self._nu_phase() == 0
+                       and n_blocks % self._nuspec.ratio == 0)
+            self._state, outs = (
+                NU.process_blocks_nu_fast if aligned
+                else NU.process_blocks_nu)(self._state, self._coeffs,
+                                           self._to_device(blocks))
+        else:
+            self._state, outs = _scan(self._step, self._state, self._coeffs,
+                                      self._to_device(blocks))
+        out_np = outs.cpu().numpy()  # [B, C, N]
+        if not np.isfinite(out_np[0, 0, 0]):
+            pinfo("NaN or Inf values in the system! Invalid input? Aborting.")
+            self._failed = True
+            return blocks.transpose(1, 0, 2).reshape(c, -1)
+        if self.config.stream.out_format.isfloat:
+            self._overflow = fm.count_float_overflow(
+                outs.transpose(0, 1).reshape(c, -1), self._overflow)
+        return out_np.transpose(1, 0, 2).reshape(c, -1)
+
+    def render(self, frames, sample_rate: Optional[int] = None):
+        raise _not_ported("render")
+
+    def process_raw(self, raw: bytes, sample_rate: Optional[int] = None):
+        raise _not_ported("process_raw")
+
+    def flush(self) -> None:
+        """Drop any partial block (foo_dsp_bfir.cpp:367-370)."""
+        if self._pending is not None:
+            self._pending = self._pending[:, :0]
+
+    # -- observability ------------------------------------------------------
+
+    def overflow_stats(self) -> Optional[dth.OverflowStats]:
+        if self._overflow is None:
+            return None
+        return dth.OverflowStats(*(t.cpu().numpy() for t in self._overflow))
+
+    def check_overflows(self) -> None:
+        """Print per-channel peak/overflow on change
+        (brutefir::check_overflows + print_overflows, brutefir.cpp:370-388,
+        585-629)."""
+        cur = self.overflow_stats()
+        if cur is None:
+            return
+        if any(not np.array_equal(a, b)
+               for a, b in zip(cur, self._last_overflow)):
+            self._last_overflow = cur
+            for ch in range(self._channels):
+                peak = float(cur.largest[ch])
+                peak_db = 20 * np.log10(peak) if peak > 0 else -np.inf
+                pinfo("Channel %d: overflows %d, peak %.2f dBFS",
+                      ch, int(cur.n_overflows[ch]), peak_db)

@@ -1,0 +1,127 @@
+"""Build and bind the port's CUDA kernels (``bfir_tpu_torch/csrc/*.cu``).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, bound with ctypes. The build runs at first use, into
+``build/bfir_tpu_torch/`` at the root of the checkout, under a name keyed by
+a hash of the sources and flags: an unchanged tree reuses its library and a
+changed one builds anew. ptxas's register and shared-memory report is kept
+beside the library as ``build-<hash>.log``.
+
+Every entry point returns the ``cudaError_t`` of its launch; ``check``
+raises on anything but success. Nothing here runs when the module is
+imported, so a machine without nvcc or a GPU can import the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bfir_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # r_a, r_lo, r_scale, r_kind, c_a, c_lo, c_scale, c_kind, yr, yi,
+    # P, C, Cs, hp, pos, stream
+    "bfir_mac_hc": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                    _I, _I, _I, _I, _I, _P],
+    # hr, hi, in_stride, out, tw_n, tw_h, rows, h, stream
+    "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
+                           _P],
+}
+
+
+def sources() -> list:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the kernels (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> str:
+    """Path of the built library, building it first if it is missing."""
+    digest = _digest()
+    so = os.path.join(BUILD_DIR, f"libbfir_kernels-{digest}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cu = [s for s in sources() if s.endswith(".cu")]
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                         capture_output=True, text=True)
+    with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           f"{res.stderr[-4000:]}")
+    os.replace(tmp, so)  # atomic against a concurrent build
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and bound."""
+    lib = ctypes.CDLL(library_path())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.bfir_error_string.argtypes = [ctypes.c_int]
+    lib.bfir_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err:
+        msg = load().bfir_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(t: torch.Tensor, name: str, dtypes, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor on CUDA ``device``, of one
+    of ``dtypes``, whose storage is 16-byte aligned (the kernels' vector
+    loads)."""
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
+                        f"{tuple(str(d) for d in dtypes)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} storage is not 16-byte aligned")

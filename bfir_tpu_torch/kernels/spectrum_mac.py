@@ -1,0 +1,340 @@
+"""The halfcomplex engine and its ring-MAC kernels (K1-K3).
+
+Counterpart of ``bfir_tpu/kernels/spectrum_mac.py``. The ring of input
+spectra stays fixed in memory, one slot is overwritten per block, and the
+MAC reads partition p from slot ``(pos - p) mod P`` (brutefir's
+``(blockcounter - i) % n_blocks``). Spectra are packed halfcomplex planes
+``[P, 2C, Hp]``: re rows, then im rows; lane 0 = (DC.re, Nyquist.re);
+``Hp`` is n_fft/2 rounded up to 128. Shared coefficients are ``[P, 2, Hp]``.
+
+Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int``) take
+their plain PyTorch version for CPU tensors and launch the CUDA kernel in
+``csrc/mac_hc.cu`` for CUDA tensors (or raise); each counts its launches in
+its ``launches`` attribute. ``blockcounter`` is a host int, so no step reads
+the device to pick a ring slot. Ring inserts update the ring in place: a
+state passed to a step must not be used again.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.kernels import cuda_lib
+from bfir_tpu_torch.ops import fft as F
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Block-scaled integer planes (the int24 / int16 storage tiers)
+# ---------------------------------------------------------------------------
+
+
+class IntPlanes(NamedTuple):
+    """Block-scaled integer spectra: ``hi`` int16 [..., H], ``lo`` uint8
+    [..., H] (None for the int16 tier), ``scale`` f32 [..., 128] (the row's
+    scale repeated along 128 lanes, the reference's layout)."""
+
+    hi: torch.Tensor
+    lo: Optional[torch.Tensor]
+    scale: torch.Tensor
+
+
+_I24_MAX = float(2 ** 23 - 1)
+_I16_MAX = 32767.0
+
+
+def quantize_planes(planes: torch.Tensor, bits: int) -> IntPlanes:
+    """Quantize planes [..., H] per row: q = round(a / s), s = rowmax / qmax;
+    int24 splits q into an arithmetic high int16 (q >> 8) and an unsigned
+    low byte (q & 255)."""
+    if bits not in (16, 24):
+        raise ValueError(f"bits must be 16 or 24, got {bits}")
+    qmax = _I24_MAX if bits == 24 else _I16_MAX
+    planes = planes.to(torch.float32)
+    s = torch.clamp_min(planes.abs().amax(dim=-1, keepdim=True) / qmax, 1e-30)
+    q = torch.clamp(torch.round(planes / s), -qmax, qmax).to(torch.int32)
+    scale = s.expand(*s.shape[:-1], 128).contiguous()
+    if bits == 16:
+        return IntPlanes(hi=q.to(torch.int16), lo=None, scale=scale)
+    return IntPlanes(hi=(q >> 8).to(torch.int16),
+                     lo=(q & 255).to(torch.uint8), scale=scale)
+
+
+def dequantize_planes(ip: IntPlanes) -> torch.Tensor:
+    """Inverse of ``quantize_planes``."""
+    q = ip.hi.to(torch.int32)
+    if ip.lo is not None:
+        q = q * 256 + ip.lo.to(torch.int32)
+    return q.to(torch.float32) * ip.scale[..., :1]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the MAC kernels
+# ---------------------------------------------------------------------------
+
+
+def mac_reference_hc(ring_re, ring_im, coeff_re, coeff_im, pos: int):
+    """Halfcomplex MAC ``sum_p coeff[p] * ring[(pos - p) mod P]`` on split
+    planes; lane 0 is two real products (DC.re and Nyquist.re)."""
+    p = ring_re.shape[0]
+    idx = torch.remainder(pos - torch.arange(p), p).to(ring_re.device)
+    rr = ring_re.index_select(0, idx)
+    ri = ring_im.index_select(0, idx)
+    p1 = coeff_re * rr
+    p2 = coeff_im * ri
+    a_r = p1 - p2
+    a_i = coeff_re * ri + coeff_im * rr
+    a_r[..., 0] = p1[..., 0]
+    a_i[..., 0] = p2[..., 0]
+    return a_r.sum(dim=0), a_i.sum(dim=0)
+
+
+def mac_hc_plain(ring, coeff, pos: int):
+    """Plain version of K1 and K2: ``mac_reference_hc`` on packed planes
+    [P, 2C, Hp] and [P, 2C | 2, Hp]; bf16 planes compute in float32."""
+    if ring.dtype == torch.bfloat16:
+        ring = ring.to(torch.float32)
+    if coeff.dtype == torch.bfloat16:
+        coeff = coeff.to(torch.float32)
+    c = ring.shape[1] // 2
+    cs = coeff.shape[1] // 2
+    return mac_reference_hc(ring[:, :c], ring[:, c:], coeff[:, :cs],
+                            coeff[:, cs:], pos)
+
+
+def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos: int):
+    """Plain version of K3: decode, then ``mac_reference_hc`` (f32)."""
+    return mac_hc_plain(dequantize_planes(ring), dequantize_planes(coeff), pos)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+# storage kinds of csrc/mac_hc.cu
+_F32, _BF16, _I24, _I16 = 0, 1, 2, 3
+
+
+def _float_plane(x: torch.Tensor, name: str, device):
+    cuda_lib.require_cuda(x, name, (torch.float32, torch.bfloat16), device)
+    kind = _F32 if x.dtype == torch.float32 else _BF16
+    return kind, x.data_ptr(), None, None, x.shape
+
+
+def _int_plane(ip: IntPlanes, name: str, device):
+    cuda_lib.require_cuda(ip.hi, name + ".hi", (torch.int16,), device)
+    cuda_lib.require_cuda(ip.scale, name + ".scale", (torch.float32,), device)
+    p, rows, _ = ip.hi.shape
+    if tuple(ip.scale.shape) != (p, rows, 128):
+        raise ValueError(f"{name}.scale must be [{p}, {rows}, 128], got "
+                         f"{tuple(ip.scale.shape)}")
+    if ip.lo is None:
+        return _I16, ip.hi.data_ptr(), None, ip.scale.data_ptr(), ip.hi.shape
+    cuda_lib.require_cuda(ip.lo, name + ".lo", (torch.uint8,), device)
+    if ip.lo.shape != ip.hi.shape:
+        raise ValueError(f"{name}.lo shape {tuple(ip.lo.shape)} != hi shape "
+                         f"{tuple(ip.hi.shape)}")
+    return (_I24, ip.hi.data_ptr(), ip.lo.data_ptr(), ip.scale.data_ptr(),
+            ip.hi.shape)
+
+
+def _launch_mac(r, g, pos: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/mac_hc.cu on plane descriptors from _float_plane /
+    _int_plane; returns (yr, yi) [C, Hp] float32."""
+    r_kind, r_a, r_lo, r_s, (p, c2, hp) = r
+    g_kind, g_a, g_lo, g_s, (gp, gc2, ghp) = g
+    c, cs = c2 // 2, gc2 // 2
+    if c2 % 2 or gc2 % 2 or gp != p or ghp != hp or cs not in (1, c):
+        raise ValueError(f"ring [{p}, {c2}, {hp}] and coefficients "
+                         f"[{gp}, {gc2}, {ghp}] do not pair")
+    if hp % 128:
+        raise ValueError(f"Hp {hp} must be a multiple of 128")
+    yr = torch.empty((c, hp), dtype=torch.float32, device=device)
+    yi = torch.empty_like(yr)
+    lib = cuda_lib.load()
+    with torch.cuda.device(device):
+        err = lib.bfir_mac_hc(r_a, r_lo, r_s, r_kind, g_a, g_lo, g_s, g_kind,
+                              yr.data_ptr(), yi.data_ptr(), p, c, cs, hp,
+                              pos % p, cuda_lib.stream_of(yr))
+    cuda_lib.check(err, "mac_hc")
+    return yr, yi
+
+
+def mac_hc(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int):
+    """K1: halfcomplex ring MAC over ring [P, 2C, Hp] and coefficients
+    [P, 2C | 2, Hp], float32 or bf16 storage, float32 arithmetic ->
+    (yr, yi) [C, Hp]. Replaces
+    ``spectrum_mac.mac_pallas_hc``."""
+    if ring_pk.device.type == "cpu":
+        return mac_hc_plain(ring_pk, coeff_pk, pos)
+    dev = ring_pk.device
+    out = _launch_mac(_float_plane(ring_pk, "ring", dev),
+                      _float_plane(coeff_pk, "coeff", dev), pos, dev)
+    mac_hc.launches += 1
+    return out
+
+
+def _check_tile(hp: int, tile: int) -> None:
+    if hp % tile:
+        raise ValueError(f"freq tile {tile} must divide Hp {hp}")
+
+
+def mac_hc_tiled(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
+                 tile: int = 2048):
+    """K2: ``mac_hc`` for the two-stage tail, with float32 or bf16 storage
+    (accumulated in float32). ``tile`` is validated like the reference's
+    (it must divide Hp) but only shaped the TPU's VMEM use. Replaces
+    ``spectrum_mac.mac_pallas_hc_tiled``."""
+    _check_tile(ring_pk.shape[-1], tile)
+    if ring_pk.device.type == "cpu":
+        return mac_hc_plain(ring_pk, coeff_pk, pos)
+    dev = ring_pk.device
+    out = _launch_mac(_float_plane(ring_pk, "ring", dev),
+                      _float_plane(coeff_pk, "coeff", dev), pos, dev)
+    mac_hc_tiled.launches += 1
+    return out
+
+
+def mac_hc_tiled_int(ring: IntPlanes, coeff: IntPlanes, pos: int,
+                     tile: int = 2048):
+    """K3: ``mac_hc_tiled`` on block-scaled integer planes (int24 or int16,
+    separately for ring and coefficients), decoded in the kernel and
+    accumulated in float32. Replaces
+    ``spectrum_mac.mac_pallas_hc_tiled_int``."""
+    _check_tile(ring.hi.shape[-1], tile)
+    if ring.hi.device.type == "cpu":
+        return mac_reference_hc_int(ring, coeff, pos)
+    dev = ring.hi.device
+    out = _launch_mac(_int_plane(ring, "ring", dev),
+                      _int_plane(coeff, "coeff", dev), pos, dev)
+    mac_hc_tiled_int.launches += 1
+    return out
+
+
+mac_hc.launches = 0
+mac_hc_tiled.launches = 0
+mac_hc_tiled_int.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The halfcomplex streaming engine
+# ---------------------------------------------------------------------------
+
+
+class HcState(NamedTuple):
+    """Packed halfcomplex streaming state: ring [P, 2C, Hp] (or IntPlanes),
+    prev_block [C, N], blockcounter a host int."""
+
+    ring: torch.Tensor
+    prev_block: torch.Tensor
+    blockcounter: int
+
+
+def init_hc_state(spec: FilterSpec, n_channels: int, *, device) -> HcState:
+    hp = _round_up(spec.n_fft // 2, 128)
+    dt = getattr(torch, spec.dtype)
+    return HcState(
+        ring=torch.zeros((spec.n_partitions, 2 * n_channels, hp), dtype=dt,
+                         device=device),
+        prev_block=torch.zeros((n_channels, spec.block_length), dtype=dt,
+                               device=device),
+        blockcounter=0,
+    )
+
+
+def hc_coeffs(impulse, spec: FilterSpec, n_channels: int, scale: float = 1.0,
+              precise: bool = False, shared: bool = False, *,
+              device) -> torch.Tensor:
+    """Partitioned coefficient spectra as packed halfcomplex planes
+    [P, 2C, Hp], built on the host and moved to ``device`` once.
+
+    ``shared``: one filter's planes [P, 2, Hp] for chains whose channels all
+    carry the same filter (the MAC kernels read them for every channel).
+    ``precise``: partition FFTs in float64, rounded once to the engine
+    dtype; otherwise they run in the engine dtype, as the reference's."""
+    n, p = spec.block_length, spec.n_partitions
+    hp = _round_up(spec.n_fft // 2, 128)
+    half = spec.n_fft // 2
+    if shared:
+        imp = np.asarray(impulse)
+        if imp.ndim == 2 and imp.shape[0] > 1:
+            imp = imp[:1]  # caller asserts all rows identical
+        return hc_coeffs(imp, spec, 1, scale=scale, precise=precise,
+                         device=device)
+    dt = getattr(torch, spec.dtype)
+    if precise:
+        h = torch.from_numpy(np.asarray(impulse, dtype=np.float64) * float(scale))
+    else:
+        h = (torch.as_tensor(np.asarray(impulse), dtype=dt)
+             * torch.tensor(scale, dtype=dt))
+    if h.ndim == 1:
+        h = h[None, :]
+    c0, taps = h.shape
+    if taps > n * p:
+        h = h[:, : n * p]
+    else:
+        h = torch.nn.functional.pad(h, (0, n * p - taps))
+    parts = h.reshape(c0, p, n).transpose(0, 1)
+    cr, ci = F.rfft_split_hc(parts, n=spec.n_fft)
+    cr = torch.nn.functional.pad(cr.to(dt), (0, hp - half))
+    ci = torch.nn.functional.pad(ci.to(dt), (0, hp - half))
+    if c0 != n_channels:
+        cr = cr.expand(p, n_channels, hp)
+        ci = ci.expand(p, n_channels, hp)
+    return torch.cat([cr, ci], dim=1).to(device)
+
+
+def _hc_frame_spectrum(state: HcState, block: torch.Tensor, hp: int):
+    """rfft of the overlap-save frame [prev | block], packed [2C, Hp].
+    Returns (new prev_block, packed spectrum); the new prev_block is a view
+    of the frame, so it never aliases the caller's block."""
+    n = block.shape[-1]
+    frame = torch.cat([state.prev_block, block.to(state.prev_block.dtype)],
+                      dim=-1)
+    hr, hi = F.rfft_split_hc(frame)
+    pad = hp - hr.shape[-1]
+    xpk = torch.cat([torch.nn.functional.pad(hr, (0, pad)),
+                     torch.nn.functional.pad(hi, (0, pad))], dim=0)
+    return frame[:, n:], xpk
+
+
+def step_hc(state: HcState, coeff_pk: torch.Tensor,
+            block: torch.Tensor) -> Tuple[HcState, torch.Tensor]:
+    """One streaming block on the halfcomplex representation: frame rfft,
+    ring-slot insert (in place), K1 MAC, overlap-save tail."""
+    p, _, hp = state.ring.shape
+    n = block.shape[-1]
+    prev, xpk = _hc_frame_spectrum(state, block, hp)
+    pos = state.blockcounter % p
+    state.ring[pos] = xpk
+    yr, yi = mac_hc(state.ring, coeff_pk, pos)
+    out = F.irfft_hc_tail(yr.to(prev.dtype), yi.to(prev.dtype), n=2 * n)
+    return HcState(state.ring, prev, state.blockcounter + 1), out
+
+
+def step_hc_crossfade(state: HcState, coeff_old: torch.Tensor,
+                      coeff_new: torch.Tensor,
+                      block: torch.Tensor) -> Tuple[HcState, torch.Tensor]:
+    """Glitch-free filter-change block: one ring advance, two MACs, and a
+    linear ramp old -> new over the block (fftw_convolver.cpp:275-321)."""
+    p, _, hp = state.ring.shape
+    n = block.shape[-1]
+    prev, xpk = _hc_frame_spectrum(state, block, hp)
+    pos = state.blockcounter % p
+    state.ring[pos] = xpk
+    yo = mac_hc(state.ring, coeff_old, pos)
+    yn = mac_hc(state.ring, coeff_new, pos)
+    out_old = F.irfft_hc_tail(yo[0].to(prev.dtype), yo[1].to(prev.dtype),
+                              n=2 * n)
+    out_new = F.irfft_hc_tail(yn[0].to(prev.dtype), yn[1].to(prev.dtype),
+                              n=2 * n)
+    ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
+    out = out_old * (1.0 - ramp) + out_new * ramp
+    return HcState(state.ring, prev, state.blockcounter + 1), out

@@ -1,0 +1,76 @@
+"""Real FFTs in the split and halfcomplex plane layouts, on ``torch.fft``.
+
+Counterpart of ``bfir_tpu/ops/fft.py``. The reference builds its transforms
+from matmuls because its TPU backend had no FFT op; that machinery is plain
+XLA, not a kernel, so here every transform is ``torch.fft`` and only the
+layout contract is kept:
+
+- numpy conventions: transforms over the last axis, the inverse carries the
+  1/n scale;
+- split planes: ``(re, im)``, each ``[..., n//2 + 1]``;
+- halfcomplex planes: ``(hr, hi)``, each ``[..., n//2]``, with lane 0 of
+  ``hi`` holding the Nyquist bin's real part (X[0] and X[n/2] are real for
+  real input, so both fit in lane 0).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def rfft(x: torch.Tensor, n: Optional[int] = None, dim: int = -1) -> torch.Tensor:
+    return torch.fft.rfft(x, n=n, dim=dim)
+
+
+def irfft(y: torch.Tensor, n: Optional[int] = None, dim: int = -1) -> torch.Tensor:
+    return torch.fft.irfft(y, n=n, dim=dim)
+
+
+def rfft_split(x: torch.Tensor, n: Optional[int] = None):
+    """rfft over the last axis -> (re, im), each [..., n//2 + 1]."""
+    y = torch.fft.rfft(x, n=n or x.shape[-1], dim=-1)
+    return y.real, y.imag
+
+
+def irfft_split(yr: torch.Tensor, yi: torch.Tensor,
+                n: Optional[int] = None) -> torch.Tensor:
+    """Inverse rfft from split re/im planes -> real [..., n]."""
+    m = n or 2 * (yr.shape[-1] - 1)
+    return torch.fft.irfft(torch.complex(yr, yi), n=m, dim=-1)
+
+
+def rfft_split_hc(x: torch.Tensor, n: Optional[int] = None):
+    """rfft over the last axis -> halfcomplex planes [..., n//2]."""
+    m = n or x.shape[-1]
+    h = m // 2
+    xr, xi = rfft_split(x, n=m)
+    return xr[..., :h], torch.cat([xr[..., h:h + 1], xi[..., 1:h]], dim=-1)
+
+
+def _hc_to_complex(hr: torch.Tensor, hi: torch.Tensor, h: int) -> torch.Tensor:
+    """Halfcomplex planes (lane-padded allowed) -> complex [..., h + 1]."""
+    hr = hr[..., :h]
+    hi = hi[..., :h]
+    zero = torch.zeros_like(hr[..., :1])
+    yr = torch.cat([hr, hi[..., :1]], dim=-1)
+    yi = torch.cat([zero, hi[..., 1:], zero], dim=-1)
+    return torch.complex(yr, yi)
+
+
+def irfft_split_hc(hr: torch.Tensor, hi: torch.Tensor,
+                   n: Optional[int] = None) -> torch.Tensor:
+    """Inverse rfft from halfcomplex planes -> real [..., n]. Accepts
+    lane-padded planes (width >= n//2; extra lanes ignored)."""
+    m = n or 2 * hr.shape[-1]
+    return torch.fft.irfft(_hc_to_complex(hr, hi, m // 2), n=m, dim=-1)
+
+
+def irfft_hc_tail(hr: torch.Tensor, hi: torch.Tensor,
+                  n: Optional[int] = None) -> torch.Tensor:
+    """``irfft_split_hc(hr, hi, n)[..., n//2:]``: the overlap-save tail, the
+    only half of the inverse the engines keep. Lane-padded inputs
+    accepted."""
+    m = n or 2 * hr.shape[-1]
+    return irfft_split_hc(hr, hi, m)[..., m // 2:]

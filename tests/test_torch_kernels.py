@@ -1,0 +1,150 @@
+"""bfir_tpu_torch kernels K1-K4: each wrapper on CPU tensors (its plain
+PyTorch version) against the bfir_tpu Pallas kernel in interpret mode, on
+the same numpy inputs.
+
+Tolerance: 1e-5 x max|reference| — the two sides sum partitions and
+butterflies in different orders in float32."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from bfir_tpu.kernels import fft_fused as JFF
+from bfir_tpu.kernels import spectrum_mac as JK
+from bfir_tpu_torch.kernels import fft_fused as FF
+from bfir_tpu_torch.kernels import spectrum_mac as K
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_compiled_graphs():
+    """Drop this module's compiled JAX graphs when it ends: XLA's CPU
+    compiler has aborted xdist workers late in full runs once many
+    executables had accumulated in one process (see
+    tests/test_session_sharded.py)."""
+    yield
+    jax.clear_caches()
+
+
+P, C, HP, TILE = 3, 2, 256, 128
+
+
+def _close(got, ref, rel=1e-5):
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * np.abs(ref).max())
+
+
+def _planes(seed, cs):
+    rng = np.random.default_rng(seed)
+    ring = rng.standard_normal((P, 2 * C, HP)).astype(np.float32)
+    coeff = rng.standard_normal((P, 2 * cs, HP)).astype(np.float32)
+    return ring, coeff
+
+
+@pytest.mark.parametrize("cs", [C, 1], ids=["per_channel", "shared"])
+@pytest.mark.parametrize("pos", [0, 2])
+def test_mac_hc_matches_pallas(cs, pos):
+    ring, coeff = _planes(1, cs)
+    jr, ji = JK.mac_pallas_hc(jnp.asarray(ring), jnp.asarray(coeff),
+                              jnp.int32(pos), interpret=True)
+    tr, ti = K.mac_hc(torch.from_numpy(ring), torch.from_numpy(coeff), pos)
+    _close(tr, jr)
+    _close(ti, ji)
+    assert K.mac_hc.launches == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("cs", [C, 1], ids=["per_channel", "shared"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mac_hc_tiled_matches_pallas(cs, dtype):
+    ring, coeff = _planes(2, cs)
+    jdt = jnp.dtype(dtype)
+    jring, jcoeff = jnp.asarray(ring, jdt), jnp.asarray(coeff, jdt)
+    jr, ji = JK.mac_pallas_hc_tiled(jring, jcoeff, jnp.int32(1), tile=TILE,
+                                    interpret=True)
+    tdt = getattr(torch, dtype)
+    tr, ti = K.mac_hc_tiled(torch.from_numpy(ring).to(tdt),
+                            torch.from_numpy(coeff).to(tdt), 1, tile=TILE)
+    assert tr.dtype == torch.float32
+    _close(tr, jr)
+    _close(ti, ji)
+    with pytest.raises(ValueError, match="must divide"):
+        K.mac_hc_tiled(torch.from_numpy(ring), torch.from_numpy(coeff), 1,
+                       tile=96)
+
+
+@pytest.mark.parametrize("cs", [C, 1], ids=["per_channel", "shared"])
+@pytest.mark.parametrize("bits", [(24, 24), (16, 16), (24, 16)],
+                         ids=["int24", "int16", "int24_ring_int16_coeff"])
+def test_mac_hc_tiled_int_matches_pallas(cs, bits):
+    ring, coeff = _planes(3, cs)
+    jr_q = JK.quantize_planes(jnp.asarray(ring), bits[0])
+    jc_q = JK.quantize_planes(jnp.asarray(coeff), bits[1])
+    jr, ji = JK.mac_pallas_hc_tiled_int(jr_q, jc_q, jnp.int32(2), tile=TILE,
+                                        interpret=True)
+    tr_q = K.quantize_planes(torch.from_numpy(ring), bits[0])
+    tc_q = K.quantize_planes(torch.from_numpy(coeff), bits[1])
+    tr, ti = K.mac_hc_tiled_int(tr_q, tc_q, 2, tile=TILE)
+    _close(tr, jr)
+    _close(ti, ji)
+
+
+@pytest.mark.parametrize("bits", [24, 16])
+def test_quantize_planes_matches_reference(bits):
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((3, 4, 256))
+         * rng.uniform(1e-3, 1e3, (3, 4, 1))).astype(np.float32)
+    jq = JK.quantize_planes(jnp.asarray(x), bits)
+    tq = K.quantize_planes(torch.from_numpy(x), bits)
+    # scales: the same f32 arithmetic, so equal to f32 rounding
+    np.testing.assert_allclose(tq.scale.numpy(), np.asarray(jq.scale),
+                               rtol=2e-7, atol=0)
+    assert tq.scale.shape == (3, 4, 128)
+    assert tq.hi.dtype == torch.int16
+    assert (tq.lo is None) == (bits == 16)
+    if bits == 24:
+        assert tq.lo.dtype == torch.uint8
+    # decoded planes within 1 LSB of the reference's q
+    lsb = np.asarray(jq.scale)[..., :1]
+    dq = K.dequantize_planes(tq).numpy()
+    assert np.all(np.abs(dq - np.asarray(JK.dequantize_planes(jq)))
+                  <= 1.001 * lsb)
+    assert np.all(np.abs(dq - x) <= 0.501 * lsb + 1e-6 * np.abs(x))
+
+
+def test_irfft_tail_balanced_matches_pallas():
+    rng = np.random.default_rng(5)
+    h = 1024
+    x = rng.standard_normal((4, 2 * h))
+    spec = np.fft.rfft(x)
+    hr = spec.real[:, :h].astype(np.float32)
+    hi = np.concatenate([spec.real[:, h:h + 1], spec.imag[:, 1:h]],
+                        axis=1).astype(np.float32)
+    jy = JFF.irfft_split_hc_tail_balanced(jnp.asarray(hr), jnp.asarray(hi),
+                                          n=2 * h, interpret=True)
+    ty = FF.irfft_split_hc_tail_balanced(torch.from_numpy(hr),
+                                         torch.from_numpy(hi), 2 * h)
+    _close(ty, jy)
+    _close(ty, x[:, h:], rel=2e-6)
+    # lane-padded planes read only the first h lanes
+    pad = np.full((4, 128), 7.0, np.float32)
+    tp = FF.irfft_split_hc_tail_balanced(
+        torch.from_numpy(np.concatenate([hr, pad], 1)),
+        torch.from_numpy(np.concatenate([hi, pad], 1)), 2 * h)
+    np.testing.assert_array_equal(tp.numpy(), ty.numpy())
+    assert FF.irfft_split_hc_tail_balanced.launches == 0
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor off the CPU never takes the plain version: the wrappers
+    check it for the kernel and raise (here on the meta device)."""
+    ring = torch.zeros((P, 2 * C, HP), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.mac_hc(ring, ring, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        FF.irfft_split_hc_tail_balanced(ring[0], ring[0], 2 * HP)

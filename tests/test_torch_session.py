@@ -1,0 +1,168 @@
+"""The slice end to end: bfir_tpu_torch ``StreamProcessor(device="cpu")``
+against bfir_tpu's ``StreamProcessor`` and scipy on the same impulse WAV
+and input, plus the port's guards.
+
+Tolerance: float32 engines, 1e-5 x max|reference| against each other and
+against the float64 scipy convolution."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from scipy import signal
+
+from bfir_tpu.core.spec import (ChainSpec, EngineConfig, FilterSpec,
+                                ImpulseFileSpec, StreamSpec)
+from bfir_tpu.engine.cache import ArtifactCache
+from bfir_tpu.engine.session import StreamProcessor as JaxStreamProcessor
+from bfir_tpu.io import wavio
+from bfir_tpu_torch.engine.session import StreamProcessor
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_compiled_graphs():
+    """Drop this module's compiled JAX graphs when it ends: XLA's CPU
+    compiler has aborted xdist workers late in full runs once many
+    executables had accumulated in one process (see
+    tests/test_session_sharded.py)."""
+    yield
+    jax.clear_caches()
+
+
+N = 256
+TAPS = 6100  # head covers 16 x 256 = 4096 taps: the tail stage is engaged
+
+
+def _close(got, ref, rel=1e-5):
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=rel * np.abs(ref).max())
+
+
+def _config(path, mode="nonuniform"):
+    return EngineConfig(
+        filter=FilterSpec(block_length=N, dtype="float32"),
+        stream=StreamSpec(n_channels=2, sample_rate=44100),
+        chain=ChainSpec(files=(ImpulseFileSpec(enabled=True, filename=path),
+                               ImpulseFileSpec(), ImpulseFileSpec())),
+        engine_mode=mode)
+
+
+def _impulse(tmp_path, name, rows, seed, taps=TAPS):
+    rng = np.random.default_rng(seed)
+    h = (rng.standard_normal((rows, taps))
+         * np.exp(-np.arange(taps) / 2000.0) * 0.05).astype(np.float32)
+    path = str(tmp_path / name)
+    wavio.write(path, h.T, 44100, subtype="float32")
+    return path, np.broadcast_to(h.astype(np.float64), (2, taps))
+
+
+def _scipy(x, h):
+    return np.stack([signal.fftconvolve(x[c], h[c]) for c in range(2)])
+
+
+@pytest.mark.parametrize("rows", [2, 1], ids=["per_channel", "mono_shared"])
+def test_session_nonuniform_matches_reference(tmp_path, rows):
+    path, h = _impulse(tmp_path, "h.wav", rows, 40 + rows)
+    cfg = _config(path)
+    jsp = JaxStreamProcessor(cfg, ArtifactCache(str(tmp_path / "jax")))
+    tsp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "torch")),
+                          device="cpu")
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((2, 40 * N + 100)).astype(np.float32)
+    # uneven chunks exercise the re-blocking
+    yj = np.concatenate([jsp.process(x[:, a:b]) for a, b in
+                         [(0, 1000), (1000, 1001), (1001, x.shape[1])]], 1)
+    yt = np.concatenate([tsp.process(x[:, a:b]) for a, b in
+                         [(0, 300), (300, 5000), (5000, x.shape[1])]], 1)
+    assert tsp._impl == jsp._impl == "nonuniform"
+    assert tsp._nuspec.tail_store == "float32"  # auto on the CPU
+    assert tsp._coeffs.head.shape[1] == (2 if rows == 1 else 4)
+    assert yt.shape == yj.shape == (2, 40 * N)
+    _close(yt, yj)
+    _close(yt, _scipy(x, h)[:, :yt.shape[1]])
+
+    # live reconfigure: the head ramps in-block, the tail bridges at its
+    # next fire; the stream converges to the new filter
+    path2, h2 = _impulse(tmp_path, "h2.wav", rows, 50 + rows)
+    cfg2 = _config(path2)
+    jsp.reconfigure(cfg2)
+    tsp.reconfigure(cfg2)
+    assert tsp._pending_swap is not None
+    x2 = rng.standard_normal((2, 60 * N)).astype(np.float32)
+    yj2, yt2 = jsp.process(x2), tsp.process(x2)
+    assert tsp._nu_old is None, "transition must have completed"
+    _close(yt2, yj2)
+    nu = tsp._nuspec
+    settle = (nu.ratio * (nu.delay_blocks + 2) + nu.p_head) * N
+    full = np.concatenate([x[:, :yt.shape[1] + 100], x2], axis=1)
+    ref2 = _scipy(full, h2)[:, yt.shape[1]:yt.shape[1] + yt2.shape[1]]
+    _close(yt2[:, settle:], ref2[:, settle:])
+
+    # bulk path: process_buffer agrees with the reference's and with scipy
+    x3 = rng.standard_normal((2, 16 * N)).astype(np.float32)
+    yj3, yt3 = jsp.process_buffer(x3), tsp.process_buffer(x3)
+    _close(yt3, yj3)
+    full = np.concatenate([full, x3], axis=1)
+    t0 = yt.shape[1] + yt2.shape[1]
+    _close(yt3, _scipy(full, h2)[:, t0:t0 + yt3.shape[1]])
+    stats = tsp.overflow_stats()
+    assert stats.largest.shape == (2,) and stats.largest.max() > 0
+
+
+def test_session_short_filter_takes_hc(tmp_path):
+    """A filter the head alone covers takes the halfcomplex engine, decided
+    from the geometry before anything is built."""
+    path, h = _impulse(tmp_path, "hs.wav", 2, 60, taps=900)
+    sp = StreamProcessor(_config(path), ArtifactCache(str(tmp_path / "c")),
+                         device="cpu")
+    x = np.random.default_rng(61).standard_normal((2, 8 * N)).astype(np.float32)
+    y = sp.process(x)
+    assert sp._impl == "hc"
+    _close(y, _scipy(x, h)[:, :y.shape[1]])
+    auto = StreamProcessor(_config(path, mode="auto"),
+                           ArtifactCache(str(tmp_path / "c")), device="cpu")
+    _close(auto.process(x), y)
+    assert auto._impl == "complex"  # auto on the CPU, as the reference
+
+
+def test_session_guards(tmp_path):
+    cfg = _config(str(tmp_path / "missing.wav"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StreamProcessor(cfg, device="cuda")
+    for mode in ("packed", "extended", "nonuniform_split", "nonuniform3",
+                 "sharded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            StreamProcessor(dataclasses.replace(cfg, engine_mode=mode),
+                            device="cpu")
+    # a missing impulse file passes the stream through (reference parity)
+    sp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "c")), device="cpu")
+    x = np.ones((2, 3 * N), np.float32)
+    np.testing.assert_array_equal(sp.process(x), x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sp.render(x)
+
+
+def test_port_never_imports_jax():
+    """Importing every bfir_tpu_torch module leaves jax out of the
+    process."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bfir_tpu_torch\n"
+        "for m in pkgutil.walk_packages(bfir_tpu_torch.__path__, 'bfir_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import bfir_tpu_torch.engine.session, bfir_tpu_torch.convert\n"
+        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr

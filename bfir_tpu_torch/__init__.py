@@ -4,18 +4,23 @@ A port of ``bfir_tpu`` (JAX on a TPU) to PyTorch with hand-written CUDA
 kernels for NVIDIA Hopper. It keeps the reference's layer names and
 function names so each counterpart is easy to find:
 
-- ``core``     — the uniform complex convolver and the two-stage
-                 non-uniform engine
+- ``core``     — configuration specs, the uniform complex convolver and its
+                 batched bulk form, the two-stage non-uniform engine with
+                 its split-tail schedule, the G-batch bulk scan and the
+                 offline ``BulkRenderer``
 - ``ops``      — FFT layouts, FIR design, equalizer, resampler, overflow
                  accounting
-- ``kernels``  — the halfcomplex ring MAC (K1-K3) and the tail-fire inverse
-                 (K4), each a CUDA kernel with its plain PyTorch version
-- ``engine``   — chain composition, known-answer self-check, streaming
-                 session
+- ``kernels``  — the halfcomplex ring MAC (K1-K3) and its one-band form
+                 (K5, K6), the tail-fire inverse (K4) and the correlation
+                 MAC (K7), each a CUDA kernel with its plain PyTorch version
+- ``engine``   — chain composition, artifact cache, known-answer
+                 self-check, streaming session with ``render``
+- ``io``       — WAV and the other sound-file formats (numpy / ctypes)
+- ``utils``    — logging sink, block timer, cache-key hashing
+- ``cli``      — the offline render command
 - ``convert``  — state and coefficients to and from ``bfir_tpu`` (numpy)
 
 Every function that makes tensors takes an explicit ``device``; CPU tensors
-run the kernels' plain versions, CUDA tensors run the kernels. Modules of
-``bfir_tpu`` that load no JAX (``core.spec``, ``io``, ``engine.cache``,
-``utils``) are used as they are.
+run the kernels' plain versions, CUDA tensors run the kernels. The package
+imports nothing of ``bfir_tpu`` and never imports JAX.
 """

@@ -1,0 +1,141 @@
+"""Offline render CLI: filter a WAV through a configured chain.
+
+    python -m bfir_tpu_torch.cli.render in.wav out.wav \\
+        [--impulse ir.wav [--impulse-level DB]] ... \\
+        [--eq "b0,b1,...,b30" --eq-level DB] \\
+        [--block 1024] [--dtype float32] [--out-format pcm24] \\
+        [--device cuda | --cpu]
+
+Counterpart of ``bfir_tpu/cli/render.py``: the input goes through
+``StreamProcessor.render`` (the bulk engine, core/bulk.py) and the exact
+T filtered frames are written. The default device is CUDA; ``--cpu`` is
+``--device cpu``. Integer output formats are rounded and clipped.
+The default ``--dtype`` is float32 (the reference's float64 needs the
+extended engine on CUDA, ROADMAP Queue 1 #4). ``--dither``,
+``--delay``/``--subdelay``, ``--serve`` and ``--auto-attenuate`` are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig, EqSpec,
+                                      FilterSpec, ImpulseFileSpec,
+                                      SampleFormat, StreamSpec)
+from bfir_tpu_torch.engine.session import StreamProcessor
+from bfir_tpu_torch.io import wavio
+
+_SUBTYPE_FOR_FORMAT = {
+    "pcm16": (SampleFormat.S16_LE, "pcm16"),
+    "pcm24": (SampleFormat.S24_LE, "pcm24"),
+    "pcm32": (SampleFormat.S32_LE, "pcm32"),
+    "float32": (SampleFormat.FLOAT_LE, "float32"),
+    "float64": (SampleFormat.FLOAT64_LE, "float64"),
+}
+
+# flags of the reference CLI whose machinery is not ported yet
+_NOT_PORTED = {
+    "dither": "ROADMAP Queue 1 #5 (output stage)",
+    "delay": "ROADMAP Queue 1 #6 (delay lines)",
+    "subdelay": "ROADMAP Queue 1 #6 (delay lines)",
+    "serve": "ROADMAP Queue 1 #8 (servers)",
+    "auto_attenuate": "ROADMAP Queue 1 #8 (ops.noise, with the servers)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="bfir-torch-render", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--impulse", action="append", default=[],
+                   help="impulse WAV (repeat up to 3x)")
+    p.add_argument("--impulse-level", action="append", type=float, default=[],
+                   help="level dB for the matching --impulse")
+    p.add_argument("--eq", help="31 comma-separated band gains in dB")
+    p.add_argument("--eq-level", type=float, default=0.0)
+    p.add_argument("--block", type=int, default=1024)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--out-format", choices=sorted(_SUBTYPE_FOR_FORMAT),
+                   default="float32")
+    p.add_argument("--resample", action="store_true",
+                   help="resample impulse files whose rate differs from the "
+                        "input")
+    p.add_argument("--engine-mode",
+                   choices=["auto", "complex", "packed", "hc", "nonuniform",
+                            "nonuniform_split", "nonuniform3", "extended",
+                            "sharded"],
+                   default="auto",
+                   help="streaming engine the session builds beside the "
+                        "bulk render engine (modes not ported raise)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+    p.add_argument("--cpu", action="store_true", help="same as --device cpu")
+    p.add_argument("--dither", action="store_true", help="not ported yet")
+    p.add_argument("--auto-attenuate", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--serve", type=int, metavar="PORT", default=None,
+                   help="not ported yet")
+    p.add_argument("--delay", metavar="SAMPLES[,SAMPLES...]",
+                   help="not ported yet")
+    p.add_argument("--subdelay", metavar="STEPS[,STEPS...]",
+                   help="not ported yet")
+    return p
+
+
+def config_from_args(args) -> EngineConfig:
+    for flag, item in _NOT_PORTED.items():
+        value = getattr(args, flag)
+        if value is not None and value is not False:  # --serve 0 is given
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to bfir_tpu_torch "
+                f"yet: {item}")
+    files = []
+    for i, path in enumerate(args.impulse[:3]):
+        level_db = args.impulse_level[i] if i < len(args.impulse_level) else 0.0
+        files.append(ImpulseFileSpec(enabled=True, filename=path,
+                                     level_steps=int(round(level_db * 10)),
+                                     resample=args.resample))
+    while len(files) < 3:
+        files.append(ImpulseFileSpec())
+    eq = EqSpec()
+    if args.eq:
+        mags = [int(round(float(v) * 10)) for v in args.eq.split(",")]
+        if len(mags) != 31:
+            raise SystemExit(f"--eq needs 31 values, got {len(mags)}")
+        eq = EqSpec(enabled=True, mag_steps=tuple(mags),
+                    level_steps=int(round(args.eq_level * 10)))
+    out_fmt, _ = _SUBTYPE_FOR_FORMAT[args.out_format]
+    return EngineConfig(
+        filter=FilterSpec(block_length=args.block, n_partitions=1,
+                          dtype=args.dtype),
+        stream=StreamSpec(out_format=out_fmt),
+        chain=ChainSpec(eq=eq, files=tuple(files)),
+        engine_mode=args.engine_mode,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    audio, rate = wavio.read(args.input)
+    sp = StreamProcessor(cfg, device="cpu" if args.cpu else args.device)
+    x = audio.T  # [C, T]
+    y = sp.render(x, sample_rate=rate)
+    if not sp._active:
+        print("no chain configured; passing through", file=sys.stderr)
+    _, subtype = _SUBTYPE_FOR_FORMAT[args.out_format]
+    wavio.write(args.output, y.T, rate, subtype=subtype)
+    of = sp.overflow_stats()
+    if of is not None and int(of.n_overflows.sum()) > 0:
+        print(f"warning: {int(of.n_overflows.sum())} overflowed samples",
+              file=sys.stderr)
+    print(f"rendered {x.shape[1]} frames x {x.shape[0]} ch @ {rate} Hz -> "
+          f"{args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

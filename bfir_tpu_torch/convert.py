@@ -9,6 +9,13 @@ port's NamedTuple holding numpy arrays, whose leaves flatten in the
 reference's order. ``blockcounter`` is an int32 scalar in the reference
 and a host int here. bf16 planes come back to numpy as float32 (numpy has
 no bfloat16; the widening is exact).
+
+``NuSplitState`` (the split-tail schedule) converts field for field too,
+and a state made by ``bfir_tpu`` on the CPU resumes exactly at any phase.
+One made on a TPU resumes exactly at every phase but 1: after phase 0 its
+``xstage`` holds the TPU's staged mid-transform planes (the matmul
+four-step split at its stage boundary), while the port's phase 0 stages
+the finished halfcomplex transform and its phase 1 passes it through.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuState
+from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuSplitState, NuState
 from bfir_tpu_torch.kernels.spectrum_mac import HcState, IntPlanes
 
 
@@ -77,6 +84,26 @@ def nu_state_to_numpy(st: NuState) -> NuState:
                    tail=hc_state_to_numpy(st.tail),
                    inbuf=tensor_to_numpy(st.inbuf),
                    pending=tensor_to_numpy(st.pending))
+
+
+def nu_split_state_from_numpy(st, device) -> NuSplitState:
+    return NuSplitState(head=hc_state_from_numpy(st.head, device),
+                        tail=hc_state_from_numpy(st.tail, device),
+                        acc_r=tensor_from_numpy(st.acc_r, device),
+                        acc_i=tensor_from_numpy(st.acc_i, device),
+                        xstage=tensor_from_numpy(st.xstage, device),
+                        inbuf=tensor_from_numpy(st.inbuf, device),
+                        pending=tensor_from_numpy(st.pending, device))
+
+
+def nu_split_state_to_numpy(st: NuSplitState) -> NuSplitState:
+    return NuSplitState(head=hc_state_to_numpy(st.head),
+                        tail=hc_state_to_numpy(st.tail),
+                        acc_r=tensor_to_numpy(st.acc_r),
+                        acc_i=tensor_to_numpy(st.acc_i),
+                        xstage=tensor_to_numpy(st.xstage),
+                        inbuf=tensor_to_numpy(st.inbuf),
+                        pending=tensor_to_numpy(st.pending))
 
 
 def nu_coeffs_from_numpy(co, device) -> NuCoeffs:

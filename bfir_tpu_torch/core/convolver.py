@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.ops import fft as F
 
 
@@ -115,6 +115,62 @@ def process_blocks(state: ConvolverState, coeff_spectra: torch.Tensor,
         state, y = step(state, coeff_spectra, blk)
         outs.append(y)
     return state, torch.stack(outs)
+
+
+def batch_fft_len(b: int, p: int) -> int:
+    """Block-axis FFT length for a B-block batch with P partitions."""
+    return int(2 ** np.ceil(np.log2(max(b + 2 * (p - 1), 2))))
+
+
+def prepare_batch_coeffs(coeff_spectra: torch.Tensor, b: int) -> torch.Tensor:
+    """The block-axis FFT of the coefficient spectra for ``process_batch``
+    at batch size ``b`` ([L, C, F] complex): static per filter, so it is
+    computed once, not per batch."""
+    p = coeff_spectra.shape[0]
+    return torch.fft.fft(coeff_spectra, n=batch_fft_len(b, p), dim=0)
+
+
+def process_batch(state: ConvolverState, coeff_spectra: torch.Tensor,
+                  blocks: torch.Tensor,
+                  coeff_batch_fft: Optional[torch.Tensor] = None
+                  ) -> Tuple[ConvolverState, torch.Tensor]:
+    """Batched processing of ``blocks`` [B, C, N], the offline engine of
+    short filters. Same outputs as ``process_blocks`` to float rounding:
+    all B block FFTs run as one batch, and the partition MAC, a causal
+    convolution along the block index (Y[b] = sum_p H[p] X[b-p]), runs as
+    a second FFT over the block axis. Pass ``coeff_batch_fft =
+    prepare_batch_coeffs(coeff_spectra, B)`` to reuse the coefficients'
+    block-axis transform. The ring is updated in place."""
+    p = coeff_spectra.shape[0]
+    b, c, n = blocks.shape
+    blocks = blocks.to(state.prev_block.dtype)
+    ring = state.spectra_ring
+
+    # overlapped 2N frames: frame[i] = [block_{i-1} | block_i]
+    prev = torch.cat([state.prev_block[None], blocks[:-1]], dim=0)
+    x = F.rfft(torch.cat([prev, blocks], dim=-1))  # [B, C, F]
+
+    # history: spectra of blocks counter-(P-1) .. counter-1, oldest first,
+    # so xpad[k] is the spectrum of block counter-(P-1)+k
+    k = torch.arange(p - 1, 0, -1)
+    hist_idx = torch.remainder(state.blockcounter - k, p).to(ring.device)
+    xpad = torch.cat([ring.index_select(0, hist_idx), x], dim=0)
+
+    # causal convolution along the block axis, zero-padded to L so the
+    # history's tail does not wrap
+    l = batch_fft_len(b, p)
+    hs = coeff_batch_fft
+    if hs is None or hs.shape[0] != l:
+        hs = torch.fft.fft(coeff_spectra, n=l, dim=0)
+    y = torch.fft.ifft(torch.fft.fft(xpad, n=l, dim=0) * hs, dim=0)
+    out = F.irfft(y[p - 1:p - 1 + b])[..., n:]  # [B, C, N]
+
+    # the last P spectra of xpad go to their ring slots
+    last = xpad[-p:]
+    first = state.blockcounter + b - last.shape[0]
+    slots = torch.remainder(torch.arange(first, first + last.shape[0]), p)
+    ring[slots.to(ring.device)] = last
+    return ConvolverState(ring, blocks[-1], state.blockcounter + b), out
 
 
 def direct_convolve_spectra(impulse_a, impulse_b,

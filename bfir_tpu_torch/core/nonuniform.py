@@ -30,7 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels import fft_fused as FF
 from bfir_tpu_torch.kernels import spectrum_mac as K
 from bfir_tpu_torch.ops import fft as F
@@ -384,3 +384,194 @@ def process_blocks_nu_fast(state: NuState, coeffs: NuCoeffs,
         state, y = step_nu_macro(state, coeffs, mb)
         outs.append(y)
     return state, torch.cat(outs).reshape(b, c, n)
+
+
+# ---------------------------------------------------------------------------
+# Split-tail schedule: the per-block latency smoother
+# (reference core/nonuniform.py:609-871).
+#
+# step_nu runs the whole tail fire (forward M-transform, tail MAC, inverse)
+# on the phase R-1 block. The tail output has R blocks of slack, so the
+# fire spreads over the following cycle:
+#
+#   phase 0:    the forward M-transform of [previous M-block | completed
+#               M-block] (``F.rfft_split_hc_partA``; with torch.fft this is
+#               the whole transform), staged in ``xstage``; the completed
+#               M-block becomes tail.prev_block;
+#   phase 1:    ``partB`` (a pass-through here) and the ring insert, then
+#               its MAC band;
+#   phase >= 1: its frequency band(s) of the tail MAC over all partitions
+#               (K5, or K6 on integer rings), written once into acc_r /
+#               acc_i at band * band_len; phase 2 also runs the last band;
+#   phase R-1:  the inverse of the full accumulator (K4); z joins a pending
+#               queue of depth D-1, one shorter than step_nu's because it
+#               joins one cycle later.
+#
+# Outputs equal step_nu's to float rounding. The head is the float32
+# ``step_hc`` (K1). The phase is a host int, as in step_nu.
+# ---------------------------------------------------------------------------
+
+
+class NuSplitState(NamedTuple):
+    """Split-tail streaming state: the two engine states, the banded MAC
+    accumulator, the staged forward transform and a depth-(D-1) pending
+    queue."""
+
+    head: K.HcState
+    tail: K.HcState
+    acc_r: torch.Tensor  # [C, Hp_t] float32 banded-MAC accumulator
+    acc_i: torch.Tensor
+    xstage: torch.Tensor  # [2C, Hp_t] staged forward planes (phase 0)
+    inbuf: torch.Tensor  # [C, M]
+    pending: torch.Tensor  # [D-1, C, M]
+
+
+def split_band_len(spec: NuSpec) -> int:
+    """Frequency band per phase; Hp_t must split into R 128-lane-aligned
+    bands (true for every power-of-two geometry with N >= 128)."""
+    hp = -(-spec.m // 128) * 128
+    if hp % (spec.ratio * 128):
+        raise ValueError(
+            f"split-tail needs Hp ({hp}) divisible into {spec.ratio} "
+            "128-lane-aligned bands")
+    return hp // spec.ratio
+
+
+def init_nu_split_state(spec: NuSpec, n_channels: int, *,
+                        device) -> NuSplitState:
+    dt = getattr(torch, spec.dtype)
+    hp_t = -(-spec.m // 128) * 128
+    split_band_len(spec)  # geometry check
+    if spec.head_store != "float32":
+        raise ValueError(
+            "split-tail schedule supports integer storage on the TAIL only "
+            "(the head runs the plain hc step); set head_store='float32'")
+    st = init_nu_state(spec, n_channels, device=device)
+    # accumulate in float32 for float32 engines, in the engine dtype else
+    acc_dt = torch.float32 if dt == torch.float32 else dt
+    return NuSplitState(
+        head=st.head,
+        tail=st.tail,
+        acc_r=torch.zeros((n_channels, hp_t), dtype=acc_dt, device=device),
+        acc_i=torch.zeros((n_channels, hp_t), dtype=acc_dt, device=device),
+        xstage=torch.zeros((2 * n_channels, hp_t), dtype=dt, device=device),
+        inbuf=st.inbuf,
+        pending=torch.zeros((max(1, spec.delay_blocks - 1), n_channels,
+                             spec.m), dtype=dt, device=device),
+    )
+
+
+def _split_band_mac(ring, coeff, pos: int, band: int, band_len: int):
+    """One band of the tail MAC: K5 on float rings, K6 on integer rings."""
+    if isinstance(ring, K.IntPlanes):
+        return K.mac_hc_band_int(ring, coeff, pos, band * band_len, band_len)
+    return K.mac_hc_band(ring, coeff, pos, band * band_len, band_len)
+
+
+def _split_schedule(ratio: int):
+    """Static phase plan: (fwd_split, bands_by_phase). With the two-phase
+    forward (R >= 4) bands run on phases 1..R-1 after the ring insert, the
+    leftover band riding phase 2; the one-phase form keeps band p on phase
+    p."""
+    fwd_split = 2 if ratio >= 4 else 1
+    if fwd_split == 1:
+        bands = {p: [p] for p in range(ratio)}
+    else:
+        bands = {p: [p - 1] for p in range(1, ratio)}
+        bands[2] = [1, ratio - 1]
+        bands[0] = []
+    return fwd_split, bands
+
+
+def _pad_planes(hr, hi, hp: int):
+    """(hr, hi) [C, h] -> packed [2C, hp], zero lane padding."""
+    pad = hp - hr.shape[-1]
+    return torch.cat([torch.nn.functional.pad(hr, (0, pad)),
+                      torch.nn.functional.pad(hi, (0, pad))], dim=0)
+
+
+def _split_phase(state: NuSplitState, coeffs: NuCoeffs, block,
+                 phase: int) -> Tuple[NuSplitState, torch.Tensor]:
+    """One block at host phase ``phase`` of the split-tail schedule. The
+    rings, ``acc_*`` and ``inbuf`` update in place."""
+    n = block.shape[-1]
+    c, m = state.inbuf.shape
+    ratio = m // n
+    hp_t = state.acc_r.shape[-1]
+    band_len = hp_t // ratio
+    fwd_split, bands = _split_schedule(ratio)
+
+    head, y_head = K.step_hc(state.head, coeffs.head, block)
+    off = phase * n
+    tail_slice = state.pending[0][:, off:off + n]
+
+    tail, xstage = state.tail, state.xstage
+    p_t = _ring_shape(tail.ring)[0]
+    if phase == 0:
+        # the M-block completed last cycle (inbuf, before this block's
+        # slice-0 write) is framed now; the new prev_block is a view of the
+        # frame, so the write below cannot reach it
+        frame = torch.cat([tail.prev_block, state.inbuf], dim=-1)
+        hr, hi = F.rfft_split_hc_partA(frame)
+        if fwd_split == 1:
+            pos = tail.blockcounter % p_t
+            ring = _ring_insert(tail.ring, _pad_planes(hr, hi, hp_t), pos)
+            tail = K.HcState(ring, frame[:, m:], tail.blockcounter + 1)
+        else:
+            xstage = _pad_planes(hr, hi, hp_t)
+            tail = K.HcState(tail.ring, frame[:, m:], tail.blockcounter)
+    elif phase == 1 and fwd_split == 2:
+        hr, hi = F.rfft_split_hc_partB(xstage[:c, :m], xstage[c:, :m], 2 * m)
+        pos = tail.blockcounter % p_t
+        ring = _ring_insert(tail.ring, _pad_planes(hr, hi, hp_t), pos)
+        tail = K.HcState(ring, tail.prev_block, tail.blockcounter + 1)
+
+    state.inbuf[:, off:off + n] = block
+
+    # band MACs: the newest ring slot is (counter - 1) mod P
+    pos_now = (tail.blockcounter - 1) % p_t
+    for band in bands[phase]:
+        br, bi = _split_band_mac(tail.ring, coeffs.tail, pos_now, band,
+                                 band_len)
+        boff = band * band_len
+        state.acc_r[:, boff:boff + band_len] = br
+        state.acc_i[:, boff:boff + band_len] = bi
+
+    pending = state.pending
+    if phase == ratio - 1:
+        dt = state.inbuf.dtype
+        z = _tail_inverse(state.acc_r.to(dt), state.acc_i.to(dt), m)
+        pending = _push_pending(pending, z)
+
+    out = y_head + tail_slice
+    return NuSplitState(head, tail, state.acc_r, state.acc_i, xstage,
+                        state.inbuf, pending), out
+
+
+def step_nu_split(state: NuSplitState, coeffs: NuCoeffs,
+                  block: torch.Tensor) -> Tuple[NuSplitState, torch.Tensor]:
+    """One N-block through the split-tail two-stage engine (the phase is a
+    host branch on the head's block counter); outputs match ``step_nu`` to
+    float rounding. Needs D >= 2 (every ``nu_geometry`` has it)."""
+    ratio = state.inbuf.shape[-1] // block.shape[-1]
+    return _split_phase(state, coeffs, block,
+                        state.head.blockcounter % ratio)
+
+
+def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs,
+                            blocks: torch.Tensor
+                            ) -> Tuple[NuSplitState, torch.Tensor]:
+    """``step_nu_split`` over M-cycle-aligned blocks [B, C, N] (B a
+    multiple of R, state at phase 0) -> (state, out [B, C, N])."""
+    b, c, n = blocks.shape
+    ratio = state.inbuf.shape[-1] // n
+    if b % ratio:
+        raise ValueError(f"block count {b} not a multiple of R={ratio}")
+    if state.head.blockcounter % ratio:
+        raise ValueError("process_blocks_nu_split needs the state at phase "
+                         f"0, got blockcounter {state.head.blockcounter}")
+    outs = []
+    for i, blk in enumerate(blocks):
+        state, y = _split_phase(state, coeffs, blk, i % ratio)
+        outs.append(y)
+    return state, torch.stack(outs)

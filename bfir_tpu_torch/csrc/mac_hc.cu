@@ -1,19 +1,25 @@
-// Halfcomplex ring MAC for Hopper (sm_90a): kernels K1, K2 and K3 of the port.
+// Halfcomplex ring MAC for Hopper (sm_90a): kernels K1, K2, K3, K5 and K6
+// of the port.
 //
 // Replaces bfir_tpu/kernels/spectrum_mac.py::mac_pallas_hc (K1),
-// ::mac_pallas_hc_tiled (K2) and ::mac_pallas_hc_tiled_int (K3).
+// ::mac_pallas_hc_tiled (K2), ::mac_pallas_hc_tiled_int (K3),
+// ::mac_pallas_hc_band (K5) and ::mac_pallas_hc_band_int (K6).
 //
-//   y[c, k] = sum_p coeff[p, c, k] * ring[(pos - p) mod P, c, k]
+//   y[c, k] = sum_p coeff[p, c, b0 + k] * ring[(pos - p) mod P, c, b0 + k]
 //
-// on split planes [P, 2C, Hp] (re rows 0..C-1, im rows C..2C-1). Lane 0
-// carries (DC.re, Nyquist.re), so its product is two real products, not a
-// complex one. Shared coefficients are [P, 2, Hp], read for every channel.
+// for k < band_len, on split planes [P, 2C, Hp] (re rows 0..C-1, im rows
+// C..2C-1); y is [C, band_len]. K1-K3 run the full width (b0 = 0,
+// band_len = Hp); the split-tail schedule's K5 and K6 run one 128-aligned
+// band per streaming phase. Global lane 0 carries (DC.re, Nyquist.re), so
+// its product is two real products, not a complex one; other bands have no
+// such lane. Shared coefficients are [P, 2, Hp], read for every channel.
 //
 // What bounds it on the H100: device-memory bandwidth. Per partition and
 // lane it reads four plane values and does eight flops, about half a flop
 // per byte in float32, forty times under the card's float32 ridge. At the
 // two-stage tail (14 x 128 x 8192 ring and coefficients) one call streams
-// about 117 MB in float32 and 88 MB in int24.
+// about 117 MB in float32 and 88 MB in int24; one of its eight bands an
+// eighth of that.
 //
 // Design: one thread owns four neighbouring lanes of one channel and loads
 // them as one 16-byte (float32) or 8-byte (bf16, int16) vector, so a warp
@@ -90,10 +96,11 @@ template <int RK, int CK>
 __global__ void __launch_bounds__(kThreads)
     mac_hc_kernel(Planes ring, Planes coeff, float* __restrict__ yr,
                   float* __restrict__ yi, int P, int C, int Cs, int hp,
-                  int pos) {
-  const int lane = (blockIdx.x * kThreads + threadIdx.x) * 4;
+                  int band_start, int band_len, int pos) {
+  const int k = (blockIdx.x * kThreads + threadIdx.x) * 4;
   const int c = blockIdx.y;
-  if (lane >= hp) return;
+  if (k >= band_len) return;
+  const int lane = band_start + k;
   const int cc = Cs == 1 ? 0 : c;
   float4 ar = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 ai = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -116,44 +123,47 @@ __global__ void __launch_bounds__(kThreads)
     cmac(ar.z, ai.z, cr.z, ci.z, rr.z, ri.z);
     cmac(ar.w, ai.w, cr.w, ci.w, rr.w, ri.w);
   }
-  const long long o = static_cast<long long>(c) * hp + lane;
+  const long long o = static_cast<long long>(c) * band_len + k;
   *reinterpret_cast<float4*>(yr + o) = ar;
   *reinterpret_cast<float4*>(yi + o) = ai;
 }
 
 template <int RK, int CK>
 void launch(const Planes& r, const Planes& g, float* yr, float* yi, int P,
-            int C, int Cs, int hp, int pos, cudaStream_t s) {
-  const dim3 grid((hp / 4 + kThreads - 1) / kThreads, C);
+            int C, int Cs, int hp, int b0, int bl, int pos, cudaStream_t s) {
+  const dim3 grid((bl / 4 + kThreads - 1) / kThreads, C);
   mac_hc_kernel<RK, CK><<<grid, kThreads, 0, s>>>(r, g, yr, yi, P, C, Cs, hp,
-                                                 pos);
+                                                 b0, bl, pos);
 }
 
 }  // namespace
 
 // Launches the MAC on ``stream``; returns the cudaError_t of the launch.
 // r_kind / c_kind: 0 float32, 1 bf16, 2 int24, 3 int16 (float kinds pair
-// with float kinds, integer kinds with integer kinds). 0 <= pos < P.
+// with float kinds, integer kinds with integer kinds). 0 <= pos < P. The
+// band [b0, b0 + bl) lies inside [0, hp), b0 and bl multiples of 4; yr and
+// yi are [C, bl].
 extern "C" int bfir_mac_hc(const void* r_a, const void* r_lo,
                            const float* r_scale, int r_kind, const void* c_a,
                            const void* c_lo, const float* c_scale, int c_kind,
                            float* yr, float* yi, int P, int C, int Cs, int hp,
-                           int pos, void* stream) {
+                           int b0, int bl, int pos, void* stream) {
   if (P < 1 || C < 1 || (Cs != 1 && Cs != C) || hp < 4 || hp % 4 ||
-      pos < 0 || pos >= P)
+      b0 < 0 || b0 % 4 || bl < 4 || bl % 4 || b0 + bl > hp || pos < 0 ||
+      pos >= P)
     return static_cast<int>(cudaErrorInvalidValue);
   const Planes r{r_a, static_cast<const uint8_t*>(r_lo), r_scale};
   const Planes g{c_a, static_cast<const uint8_t*>(c_lo), c_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (r_kind * 4 + c_kind) {
-    case kF32 * 4 + kF32: launch<kF32, kF32>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kF32 * 4 + kBF16: launch<kF32, kBF16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kBF16 * 4 + kF32: launch<kBF16, kF32>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kBF16 * 4 + kBF16: launch<kBF16, kBF16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kI24 * 4 + kI24: launch<kI24, kI24>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kI24 * 4 + kI16: launch<kI24, kI16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kI16 * 4 + kI24: launch<kI16, kI24>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
-    case kI16 * 4 + kI16: launch<kI16, kI16>(r, g, yr, yi, P, C, Cs, hp, pos, s); break;
+    case kF32 * 4 + kF32: launch<kF32, kF32>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kF32 * 4 + kBF16: launch<kF32, kBF16>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kBF16 * 4 + kF32: launch<kBF16, kF32>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kBF16 * 4 + kBF16: launch<kBF16, kBF16>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kI24 * 4 + kI24: launch<kI24, kI24>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kI24 * 4 + kI16: launch<kI24, kI16>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kI16 * 4 + kI24: launch<kI16, kI24>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
+    case kI16 * 4 + kI16: launch<kI16, kI16>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

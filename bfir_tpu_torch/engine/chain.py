@@ -16,13 +16,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from bfir_tpu.core.spec import ChainSpec, EngineConfig, FilterSpec, StreamSpec
-from bfir_tpu.engine.cache import ArtifactCache
-from bfir_tpu.io import sndio, wavio
-from bfir_tpu.utils.logging import pinfo
 from bfir_tpu_torch.core.convolver import direct_convolve_spectra
+from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig, FilterSpec,
+                                      StreamSpec)
+from bfir_tpu_torch.engine.cache import ArtifactCache
+from bfir_tpu_torch.io import sndio, wavio
 from bfir_tpu_torch.ops.equalizer import ISO_BANDS, render_fir
 from bfir_tpu_torch.ops.resample import resample
+from bfir_tpu_torch.utils.logging import pinfo
 
 
 @dataclass

@@ -1,35 +1,43 @@
 """Known-answer self-check of an engine's step, with a verdict cache.
 
-Counterpart of ``bfir_tpu/engine/selfcheck.py::check_stream``: at
-coefficient build time, stream seeded noise through the exact step callable
-and coefficient tensors production will use, and compare every channel
-against a scipy float64 oracle; raise ``EngineSelfCheckError`` below the
-bound. The verdict cache, oracle and error type are the reference's own
-(they load no JAX); the cache key here covers the port's stack instead:
-torch, its CUDA build, the device's name, and the port's kernel, core and
-ops sources.
+Counterpart of ``bfir_tpu/engine/selfcheck.py``: at coefficient build time,
+stream seeded noise through the exact step callable and coefficient tensors
+production will use, and compare every channel against a scipy float64
+oracle; raise ``EngineSelfCheckError`` below the bound. The verdict cache
+keeps the reference's file format and failure expiry; its key covers the
+port's stack instead: torch, its CUDA build, the device's name, and the
+port's kernel, core and ops sources.
 """
 
 from __future__ import annotations
 
 import functools
 import hashlib
+import json
 import os
+import tempfile
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from bfir_tpu.core.spec import FilterSpec
-from bfir_tpu.engine.selfcheck import (  # noqa: F401  (re-exported)
-    DEFAULT_MIN_SNR_DB,
-    EngineSelfCheckError,
-    _oracle,
-    _worst_snr_db,
-    load_verdict,
-    store_verdict,
-)
-from bfir_tpu.utils.logging import pinfo
+from bfir_tpu_torch.core.spec import FilterSpec
+from bfir_tpu_torch.utils.hashing import backend_fingerprint
+from bfir_tpu_torch.utils.logging import pinfo
+
+# float32 partitioned convolution measures ~130 dB against the float64
+# oracle; a broken kernel is O(1) wrong. 80 dB splits those regimes with
+# margin on both sides.
+DEFAULT_MIN_SNR_DB = 80.0
+
+# a cached failure expires after a day, so a transient fault cannot refuse
+# an engine for good; passes never expire (a stale pass changes the key)
+FAILURE_TTL_S = 24 * 3600.0
+
+
+class EngineSelfCheckError(RuntimeError):
+    """An engine failed its known-answer check."""
 
 
 @functools.lru_cache(maxsize=1)
@@ -49,13 +57,6 @@ def _source_fingerprint() -> str:
     return h.hexdigest()
 
 
-def backend_fingerprint(device: torch.device) -> str:
-    """torch version, CUDA build and the device's name."""
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    return "|".join([torch.__version__, str(torch.version.cuda), name])
-
-
 def cache_key(impl: str, impulse: np.ndarray, spec: FilterSpec,
               n_channels: int, n_blocks: int, min_snr_db: float,
               device: torch.device, extra: str = "") -> str:
@@ -66,6 +67,65 @@ def cache_key(impl: str, impulse: np.ndarray, spec: FilterSpec,
     h.update(backend_fingerprint(device).encode())
     h.update(_source_fingerprint().encode())
     return h.hexdigest()[:24]
+
+
+def load_verdict(cache_file: Optional[str], key: str):
+    """The cached {"snr": float, "ok": bool} verdict, or None. Failed
+    verdicts older than ``FAILURE_TTL_S`` count as absent."""
+    if not cache_file or not os.path.exists(cache_file):
+        return None
+    try:
+        with open(cache_file) as f:
+            verdict = json.load(f).get(key)
+    except (OSError, ValueError, AttributeError):
+        return None
+    if verdict is not None and not verdict.get("ok", False):
+        if time.time() - float(verdict.get("t", 0.0)) > FAILURE_TTL_S:
+            return None
+    return verdict
+
+
+def store_verdict(cache_file: Optional[str], key: str, snr: float,
+                  ok: bool) -> None:
+    if not cache_file:
+        return
+    try:
+        data = {}
+        if os.path.exists(cache_file):
+            with open(cache_file) as f:
+                data = json.load(f)
+        data[key] = {"snr": float(snr), "ok": bool(ok), "t": time.time()}
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(cache_file) or ".")
+        with os.fdopen(fd, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, cache_file)  # atomic against concurrent sessions
+    except (OSError, ValueError) as e:  # a cache fault never breaks the engine
+        pinfo("Self-check verdict cache write failed (%s).", e)
+
+
+def _oracle(x: np.ndarray, impulse: np.ndarray) -> np.ndarray:
+    """Per-channel linear convolution in float64 (scipy), cut to the
+    stream length. impulse: [C, taps] or [1, taps] (broadcast)."""
+    from scipy import signal
+
+    c, t = x.shape
+    h = np.atleast_2d(np.asarray(impulse, dtype=np.float64))
+    ref = np.empty((c, t), dtype=np.float64)
+    for ch in range(c):
+        hh = h[0] if h.shape[0] == 1 else h[ch]
+        ref[ch] = signal.fftconvolve(x[ch].astype(np.float64), hh)[:t]
+    return ref
+
+
+def _worst_snr_db(y: np.ndarray, ref: np.ndarray) -> float:
+    """Minimum per-channel SNR: one wrong channel must not hide behind good
+    ones."""
+    worst = np.inf
+    for ch in range(y.shape[0]):
+        sig = float((ref[ch] ** 2).sum())
+        err = float(((y[ch] - ref[ch]) ** 2).sum())
+        worst = min(worst, 10 * np.log10(max(sig, 1e-300) / max(err, 1e-300)))
+    return worst
 
 
 def _stream(step_call, init_state, coeffs, x: np.ndarray, n: int,

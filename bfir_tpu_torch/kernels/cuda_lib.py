@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``bfir_tpu_torch/csrc/*.cu``).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, bound with ctypes. The build runs at first use, into
+Each ``.cu`` source compiles with its own nvcc process, all started
+together, and one more nvcc links the objects into a shared library with a
+plain C interface, bound with ctypes. The build runs at first use, into
 ``build/bfir_tpu_torch/`` at the root of the checkout, under a name keyed by
 a hash of the sources and flags: an unchanged tree reuses its library and a
 changed one builds anew. ptxas's register and shared-memory report is kept
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 
@@ -27,18 +29,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "bfir_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # r_a, r_lo, r_scale, r_kind, c_a, c_lo, c_scale, c_kind, yr, yi,
-    # P, C, Cs, hp, pos, stream
+    # P, C, Cs, hp, band_start, band_len, pos, stream
     "bfir_mac_hc": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-                    _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _P],
     # hr, hi, in_stride, out, tw_n, tw_h, rows, h, stream
     "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
                            _P],
+    # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, b_chunk, stream
+    "bfir_corr_mac": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -65,6 +69,23 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_nvcc(jobs, log) -> None:
+    """Run nvcc argument lists side by side; append their output to
+    ``log``; raise if any failed."""
+    procs = [subprocess.Popen([_nvcc(), *args], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for args in jobs]
+    failed = []
+    for args, proc in zip(jobs, procs):
+        out, _ = proc.communicate()
+        log.write(f"$ nvcc {' '.join(args)}\n{out}\n")
+        if proc.returncode:
+            failed.append(f"nvcc {' '.join(args)} (exit {proc.returncode}):"
+                          f"\n{out[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library_path() -> str:
     """Path of the built library, building it first if it is missing."""
     digest = _digest()
@@ -72,18 +93,18 @@ def library_path() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = [s for s in sources() if s.endswith(".cu")]
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                         capture_output=True, text=True)
-    with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    if res.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, so)  # atomic against a concurrent build
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        cu = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cu]
+        with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as log:
+            _run_nvcc([[*NVCC_FLAGS, "-c", src, "-o", obj]
+                       for src, obj in zip(cu, objs)], log)
+            lib = os.path.join(tmp, "lib.so")
+            _run_nvcc([[*NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]], log)
+        os.replace(lib, so)  # atomic against a concurrent build
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 

@@ -1,4 +1,4 @@
-"""The halfcomplex engine and its ring-MAC kernels (K1-K3).
+"""The halfcomplex engine and its ring-MAC kernels (K1-K3, K5, K6).
 
 Counterpart of ``bfir_tpu/kernels/spectrum_mac.py``. The ring of input
 spectra stays fixed in memory, one slot is overwritten per block, and the
@@ -7,7 +7,8 @@ MAC reads partition p from slot ``(pos - p) mod P`` (brutefir's
 ``[P, 2C, Hp]``: re rows, then im rows; lane 0 = (DC.re, Nyquist.re);
 ``Hp`` is n_fft/2 rounded up to 128. Shared coefficients are ``[P, 2, Hp]``.
 
-Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int``) take
+Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int`` and the
+split-tail schedule's one-band ``mac_hc_band``, ``mac_hc_band_int``) take
 their plain PyTorch version for CPU tensors and launch the CUDA kernel in
 ``csrc/mac_hc.cu`` for CUDA tensors (or raise); each counts its launches in
 its ``launches`` attribute. ``blockcounter`` is a host int, so no step reads
@@ -22,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels import cuda_lib
 from bfir_tpu_torch.ops import fft as F
 
@@ -80,9 +81,11 @@ def dequantize_planes(ip: IntPlanes) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def mac_reference_hc(ring_re, ring_im, coeff_re, coeff_im, pos: int):
+def mac_reference_hc(ring_re, ring_im, coeff_re, coeff_im, pos: int,
+                     lane0: bool = True):
     """Halfcomplex MAC ``sum_p coeff[p] * ring[(pos - p) mod P]`` on split
-    planes; lane 0 is two real products (DC.re and Nyquist.re)."""
+    planes; lane 0 is two real products (DC.re and Nyquist.re) where
+    ``lane0`` says the planes start at the spectrum's lane 0."""
     p = ring_re.shape[0]
     idx = torch.remainder(pos - torch.arange(p), p).to(ring_re.device)
     rr = ring_re.index_select(0, idx)
@@ -91,12 +94,13 @@ def mac_reference_hc(ring_re, ring_im, coeff_re, coeff_im, pos: int):
     p2 = coeff_im * ri
     a_r = p1 - p2
     a_i = coeff_re * ri + coeff_im * rr
-    a_r[..., 0] = p1[..., 0]
-    a_i[..., 0] = p2[..., 0]
+    if lane0:
+        a_r[..., 0] = p1[..., 0]
+        a_i[..., 0] = p2[..., 0]
     return a_r.sum(dim=0), a_i.sum(dim=0)
 
 
-def mac_hc_plain(ring, coeff, pos: int):
+def mac_hc_plain(ring, coeff, pos: int, lane0: bool = True):
     """Plain version of K1 and K2: ``mac_reference_hc`` on packed planes
     [P, 2C, Hp] and [P, 2C | 2, Hp]; bf16 planes compute in float32."""
     if ring.dtype == torch.bfloat16:
@@ -106,12 +110,30 @@ def mac_hc_plain(ring, coeff, pos: int):
     c = ring.shape[1] // 2
     cs = coeff.shape[1] // 2
     return mac_reference_hc(ring[:, :c], ring[:, c:], coeff[:, :cs],
-                            coeff[:, cs:], pos)
+                            coeff[:, cs:], pos, lane0)
 
 
 def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos: int):
     """Plain version of K3: decode, then ``mac_reference_hc`` (f32)."""
     return mac_hc_plain(dequantize_planes(ring), dequantize_planes(coeff), pos)
+
+
+def mac_reference_hc_band(ring_pk, coeff_pk, pos: int, band_start: int,
+                          band_len: int):
+    """Plain version of K5: ``mac_hc_plain`` over the lanes
+    [band_start, band_start + band_len) -> (yr, yi) [C, band_len]; the lane-0
+    law holds only in the band that starts at lane 0."""
+    sl = slice(band_start, band_start + band_len)
+    return mac_hc_plain(ring_pk[..., sl], coeff_pk[..., sl], pos,
+                        lane0=band_start == 0)
+
+
+def mac_reference_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos: int,
+                              band_start: int, band_len: int):
+    """Plain version of K6: decode, then ``mac_reference_hc_band``."""
+    return mac_reference_hc_band(dequantize_planes(ring),
+                                 dequantize_planes(coeff), pos, band_start,
+                                 band_len)
 
 
 # ---------------------------------------------------------------------------
@@ -145,9 +167,11 @@ def _int_plane(ip: IntPlanes, name: str, device):
             ip.hi.shape)
 
 
-def _launch_mac(r, g, pos: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_mac(r, g, pos: int, device, band=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/mac_hc.cu on plane descriptors from _float_plane /
-    _int_plane; returns (yr, yi) [C, Hp] float32."""
+    _int_plane over the lanes ``band`` = (start, length) (all of Hp when
+    None); returns (yr, yi) [C, length] float32."""
     r_kind, r_a, r_lo, r_s, (p, c2, hp) = r
     g_kind, g_a, g_lo, g_s, (gp, gc2, ghp) = g
     c, cs = c2 // 2, gc2 // 2
@@ -156,13 +180,14 @@ def _launch_mac(r, g, pos: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
                          f"[{gp}, {gc2}, {ghp}] do not pair")
     if hp % 128:
         raise ValueError(f"Hp {hp} must be a multiple of 128")
-    yr = torch.empty((c, hp), dtype=torch.float32, device=device)
+    b0, bl = band or (0, hp)
+    yr = torch.empty((c, bl), dtype=torch.float32, device=device)
     yi = torch.empty_like(yr)
     lib = cuda_lib.load()
     with torch.cuda.device(device):
         err = lib.bfir_mac_hc(r_a, r_lo, r_s, r_kind, g_a, g_lo, g_s, g_kind,
-                              yr.data_ptr(), yi.data_ptr(), p, c, cs, hp,
-                              pos % p, cuda_lib.stream_of(yr))
+                              yr.data_ptr(), yi.data_ptr(), p, c, cs, hp, b0,
+                              bl, pos % p, cuda_lib.stream_of(yr))
     cuda_lib.check(err, "mac_hc")
     return yr, yi
 
@@ -218,9 +243,56 @@ def mac_hc_tiled_int(ring: IntPlanes, coeff: IntPlanes, pos: int,
     return out
 
 
+def _check_band(hp: int, band_start: int, band_len: int) -> None:
+    if band_start % 128 or band_len % 128 or band_len < 128:
+        raise ValueError(f"band [{band_start}, {band_start + band_len}) must "
+                         "be 128-lane aligned")
+    if band_start < 0 or band_start + band_len > hp:
+        raise ValueError(f"band [{band_start}, {band_start + band_len}) "
+                         f"outside Hp={hp}")
+
+
+def mac_hc_band(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
+                band_start: int, band_len: int):
+    """K5: ``mac_hc_tiled`` over one 128-aligned frequency band
+    [band_start, band_start + band_len): all partitions, one slice of the
+    spectrum, float32 or bf16 storage, per-channel or shared coefficients ->
+    (yr, yi) [C, band_len] float32. The split-tail schedule runs one band
+    per streaming phase. Replaces ``spectrum_mac.mac_pallas_hc_band``."""
+    _check_band(ring_pk.shape[-1], band_start, band_len)
+    if ring_pk.device.type == "cpu":
+        return mac_reference_hc_band(ring_pk, coeff_pk, pos, band_start,
+                                     band_len)
+    dev = ring_pk.device
+    out = _launch_mac(_float_plane(ring_pk, "ring", dev),
+                      _float_plane(coeff_pk, "coeff", dev), pos, dev,
+                      (band_start, band_len))
+    mac_hc_band.launches += 1
+    return out
+
+
+def mac_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos: int,
+                    band_start: int, band_len: int):
+    """K6: ``mac_hc_band`` on block-scaled integer planes (int24 or int16,
+    per-row ``[P, 2C, 128]`` scales), decoded in the kernel. Replaces
+    ``spectrum_mac.mac_pallas_hc_band_int``."""
+    _check_band(ring.hi.shape[-1], band_start, band_len)
+    if ring.hi.device.type == "cpu":
+        return mac_reference_hc_band_int(ring, coeff, pos, band_start,
+                                         band_len)
+    dev = ring.hi.device
+    out = _launch_mac(_int_plane(ring, "ring", dev),
+                      _int_plane(coeff, "coeff", dev), pos, dev,
+                      (band_start, band_len))
+    mac_hc_band_int.launches += 1
+    return out
+
+
 mac_hc.launches = 0
 mac_hc_tiled.launches = 0
 mac_hc_tiled_int.launches = 0
+mac_hc_band.launches = 0
+mac_hc_band_int.launches = 0
 
 
 # ---------------------------------------------------------------------------

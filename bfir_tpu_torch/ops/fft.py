@@ -74,3 +74,24 @@ def irfft_hc_tail(hr: torch.Tensor, hi: torch.Tensor,
     accepted."""
     m = n or 2 * hr.shape[-1]
     return irfft_split_hc(hr, hi, m)[..., m // 2:]
+
+
+def rfft_hc_staged_eligible(m: int) -> bool:
+    """Whether ``rfft_split_hc_partA``/``partB`` split the forward transform
+    in two halves of work. The reference splits its matmul four-step FFT at
+    the stage boundary; ``torch.fft`` has no such boundary, so never (the
+    reference's own answer on its CPU backend)."""
+    return False
+
+
+def rfft_split_hc_partA(x: torch.Tensor, n: Optional[int] = None):
+    """First half of ``rfft_split_hc``, as the split-tail schedule's phase 0
+    calls it. Not ``rfft_hc_staged_eligible``, so it computes the whole
+    halfcomplex transform -> (hr, hi) [..., n//2]."""
+    return rfft_split_hc(x, n=n or x.shape[-1])
+
+
+def rfft_split_hc_partB(ar: torch.Tensor, ai: torch.Tensor, n: int):
+    """Second half of ``rfft_split_hc_partA``: partA finished the
+    transform, so its planes pass through."""
+    return ar, ai

@@ -9,27 +9,40 @@ GPU and the CUDA toolkit:
 Phases (any failure exits non-zero before the last line is printed):
 
 1. preflight: the card's name and power limit; refuses to run without CUDA;
-2. build: compiles the kernels from ``bfir_tpu_torch/csrc`` (nvcc);
-3. kernels: each of K1-K4 against its plain PyTorch version on the card,
-   at the two-stage engine's shapes (64 channels, N = 1024, M = 8192), with
-   the max error, and the device time per call (torch.profiler) and the
-   CUDA-event median of kernel and plain;
+2. build: compiles the kernels from ``bfir_tpu_torch/csrc`` (one nvcc per
+   source, side by side);
+3. kernels: each of K1-K7 against its plain PyTorch version on the card,
+   at the shapes its path gives it (64 channels, N = 1024, M = 8192, G = 8),
+   with the max error, the device time per call (torch.profiler) of kernel,
+   plain version and, where one exists, the one PyTorch call computing the
+   same function, and the least time the card could take (bytes over
+   3.35 TB/s or flops over 67 TFLOP/s float32, the larger);
 4. session A: a 64-channel x 131072-tap impulse WAV streamed through
    ``StreamProcessor(..., device="cuda").process`` in uneven chunks; the
    two-stage engine with the int24 tail; worst-channel SNR against scipy;
 5. session B: a mono impulse (shared planes) with the float32 tail; SNR,
    ``process_buffer`` against ``process``, and a mid-stream
-   ``reconfigure`` that converges to the new filter.
+   ``reconfigure`` that converges to the new filter;
+6. session C: ``engine_mode="nonuniform_split"`` streaming (int24 tail):
+   SNR, ms/block, and the wall time per phase of the M-cycle;
+7. session D: ``StreamProcessor.render`` over three dispatches (589 824
+   frames): the G-batch bulk scan; SNR and M samples/s;
+8. two further renders: ``BulkRenderer(..., nu_engine="split")`` at the
+   flagship, and a 16384-tap filter through the batch engine;
+9. the render CLI as a user runs it: ``python -m bfir_tpu_torch.cli.render``
+   in a subprocess on a 2-channel WAV and a 131072-tap impulse WAV; SNR.
 
-Launch counters are zeroed just before session A and read after session B;
-every kernel must have run on that path. The last two lines are a JSON
-object describing the kernels and the ``{"ok": true, ...}`` result.
+The launch counters are zeroed just before each path (sessions A-D, the
+two renders) and read just after it; each path must have launched its
+kernels. The last two lines are a JSON object describing the kernels and
+the ``{"ok": true, ...}`` result.
 """
 
 import json
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -42,6 +55,8 @@ TAPS = 131072     # impulse length: P = 128 partitions
 MIN_SNR_DB = 110.0
 REL_TOL = 1e-5    # kernel vs plain: float32 sums in another order
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "mac_hc": ("bfir_tpu_torch/csrc/mac_hc.cu",
@@ -52,6 +67,12 @@ KERNEL_SOURCES = {
                          "bfir_tpu/kernels/spectrum_mac.py:758"),
     "irfft_split_hc_tail_balanced": ("bfir_tpu_torch/csrc/irfft_hc_tail.cu",
                                      "bfir_tpu/kernels/fft_fused.py:340"),
+    "mac_hc_band": ("bfir_tpu_torch/csrc/mac_hc.cu",
+                    "bfir_tpu/kernels/spectrum_mac.py:594"),
+    "mac_hc_band_int": ("bfir_tpu_torch/csrc/mac_hc.cu",
+                        "bfir_tpu/kernels/spectrum_mac.py:870"),
+    "corr_mac": ("bfir_tpu_torch/csrc/corr_mac.cu",
+                 "bfir_tpu/kernels/corr_mac.py:56"),
 }
 
 
@@ -90,22 +111,26 @@ def _device_ms(fn, reps=20):
     """Device time (ms) per call of fn: the summed durations of the GPU
     work it launches, from torch.profiler, over ``reps`` calls. A host
     clock or events around one launch would also count the Python
-    wrapper's launch latency, which exceeds the small kernels' run time."""
+    wrapper's launch latency, which exceeds the small kernels' run time.
+    A profile that caught no device activity (it happens now and then
+    after many profiles in one process) is taken again, twice at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise SystemExit("chip_smoke: the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        log("profiler recorded no device time; profiling again")
+    raise SystemExit("chip_smoke: the profiler recorded no device time")
 
 
 def _event_ms(fn, reps=20):
@@ -125,15 +150,37 @@ def _event_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def _time_pair(name, variant, kernel, plain):
-    """Device ms per call of the kernel and of its plain version (logged
-    beside their CUDA-event medians)."""
-    ms = (_device_ms(kernel), _device_ms(plain))
+def _time_pair(name, variant, kernel, plain, library=None):
+    """Device ms per call of the kernel, its plain version and the library
+    call (None where there is none), logged beside the CUDA-event medians
+    of kernel and plain."""
+    ms = (_device_ms(kernel), _device_ms(plain),
+          None if library is None else _device_ms(library))
     ev = (_event_ms(kernel), _event_ms(plain))
+    lib = "" if library is None else f", library call {ms[2]:.4f} ms"
     log(f"kernel {name} [{variant}]: device {ms[0]:.4f} ms, plain "
-        f"{ms[1]:.4f} ms per call (profiler, 20 calls); CUDA-event median "
-        f"{ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
+        f"{ms[1]:.4f} ms{lib} per call (profiler, 20 calls); CUDA-event "
+        f"median {ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
     return ms
+
+
+def _bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` float32 operations, at the H100's published peaks."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _nbytes(*planes):
+    """Bytes of tensors and IntPlanes (every field)."""
+    total = 0
+    for p in planes:
+        for t in (p if isinstance(p, tuple) else (p,)):
+            if t is not None:
+                total += t.numel() * t.element_size()
+    return total
 
 
 def _err(got, ref):
@@ -148,47 +195,77 @@ def _err(got, ref):
 
 
 def check_kernels():
-    """Each kernel against its plain version on the card. Returns
-    {name: (max_abs_err, ms, plain_ms)}; launches here are not counted."""
+    """Each kernel against its plain version on the card. Returns {name:
+    {"err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}} with
+    the times of the variant the main path runs (K7: its head call plus its
+    tail call); launches here are not counted."""
     import torch
 
+    from bfir_tpu_torch.kernels import corr_mac as CM
     from bfir_tpu_torch.kernels import fft_fused as FF
     from bfir_tpu_torch.kernels import spectrum_mac as K
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(7)
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
     ph, pt, hh, ht = 16, 14, N, 8 * N  # head / tail partitions and widths
+    bl = ht // 8  # one split-tail band
     out = {}
 
-    def run(name, variant, kernel, plain, timed):
+    def run(name, variant, kernel, plain, timed=None, library=None):
+        """``timed``: (bytes, flops) of the call when it is the variant the
+        main path runs; its times are then recorded (and added to an
+        earlier timed variant's: K7's head and tail)."""
         ab, rel = _err(kernel(), plain())
         log(f"kernel {name} [{variant}]: max_abs_err {ab:.3e} "
             f"(rel {rel:.2e})")
         if not rel <= REL_TOL:
             raise SystemExit(f"chip_smoke: {name} [{variant}] disagrees with "
                              f"its plain version: rel err {rel:.2e}")
-        prev = out.get(name, (0.0, None, None))
-        ms = prev[1:]
-        if timed:
-            ms = _time_pair(name, variant, kernel, plain)
-        out[name] = (max(prev[0], ab), *ms)
+        row = out.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                    "library_ms": None, "bound_ms": 0.0,
+                                    "bytes": 0, "flops": 0})
+        row["err"] = max(row["err"], ab)
+        if timed is None:
+            return
+        ms, plain_ms, lib_ms = _time_pair(name, variant, kernel, plain,
+                                          library)
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        if lib_ms is not None:
+            row["library_ms"] = lib_ms
+        row["bytes"] += timed[0]
+        row["flops"] += timed[1]
+        row["bound_ms"], row["bound_by"] = _bound(row["bytes"], row["flops"])
+        log(f"kernel {name}: bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
+            f"{row['flops'] / 1e9:.2f} GFLOP)")
+
+    def mac_cost(ring, coeff, p, lanes, width):
+        """Bytes and flops of a ring MAC over ``lanes`` of ``width``: the
+        planes' share of those lanes, two float32 outputs, 8 flops per
+        (partition, channel, lane)."""
+        share = lanes / width
+        return (int(_nbytes(ring, coeff) * share) + 2 * C * lanes * 4,
+                8 * p * C * lanes)
 
     for cs in (C, 1):
         ring, coeff = rn(ph, 2 * C, hh), rn(ph, 2 * cs, hh)
         run("mac_hc", f"f32, coeff rows {2 * cs}",
             lambda: K.mac_hc(ring, coeff, 5),
-            lambda: K.mac_hc_plain(ring, coeff, 5), cs == C)
+            lambda: K.mac_hc_plain(ring, coeff, 5),
+            mac_cost(ring, coeff, ph, hh, hh) if cs == C else None)
     for dt in (torch.float32, torch.bfloat16):
         for cs in (C, 1):
             ring, coeff = rn(pt, 2 * C, ht).to(dt), rn(pt, 2 * cs, ht).to(dt)
             run("mac_hc_tiled", f"{dt}, coeff rows {2 * cs}",
                 lambda: K.mac_hc_tiled(ring, coeff, 3),
                 lambda: K.mac_hc_plain(ring, coeff, 3),
-                cs == C and dt == torch.float32)
+                mac_cost(ring, coeff, pt, ht, ht)
+                if cs == C and dt == torch.float32 else None)
     for bits in (24, 16):
         for cs in (C, 1):
             ring = K.quantize_planes(rn(pt, 2 * C, ht), bits)
@@ -196,11 +273,49 @@ def check_kernels():
             run("mac_hc_tiled_int", f"int{bits}, coeff rows {2 * cs}",
                 lambda: K.mac_hc_tiled_int(ring, coeff, 9),
                 lambda: K.mac_reference_hc_int(ring, coeff, 9),
-                cs == C and bits == 24)
+                mac_cost(tuple(ring), tuple(coeff), pt, ht, ht)
+                if cs == C and bits == 24 else None)
     hr, hi = rn(C, ht), rn(C, ht)
+    spec = torch.complex(torch.cat([hr, hi[:, :1]], 1),
+                         torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:],
+                                    torch.zeros_like(hi[:, :1])], 1))
+    k4_flops = C * (5 * ht * np.log2(ht) + 10 * ht)  # FFT + tangle per row
     run("irfft_split_hc_tail_balanced", f"[{C}, {ht}]",
         lambda: FF.irfft_split_hc_tail_balanced(hr, hi, 2 * ht),
-        lambda: FF.irfft_split_hc_tail_plain(hr, hi, 2 * ht), True)
+        lambda: FF.irfft_split_hc_tail_plain(hr, hi, 2 * ht),
+        (_nbytes(hr, hi) + C * ht * 4, k4_flops),
+        library=lambda: torch.fft.irfft(spec, n=2 * ht)[:, ht:])
+    # K5 / K6: one band of the split tail, band 0 (lane-0 law) and band 3
+    for cs in (C, 1):
+        ring, coeff = rn(pt, 2 * C, ht), rn(pt, 2 * cs, ht)
+        for band in (0, 3):
+            run("mac_hc_band", f"f32, band {band}, coeff rows {2 * cs}",
+                lambda: K.mac_hc_band(ring, coeff, 4, band * bl, bl),
+                lambda: K.mac_reference_hc_band(ring, coeff, 4, band * bl, bl),
+                mac_cost(ring, coeff, pt, bl, ht)
+                if cs == C and band == 3 else None)
+    for bits in (24, 16):
+        for cs in (C, 1):
+            ring = K.quantize_planes(rn(pt, 2 * C, ht), bits)
+            coeff = K.quantize_planes(rn(pt, 2 * cs, ht), bits)
+            for band in (0, 3):
+                run("mac_hc_band_int",
+                    f"int{bits}, band {band}, coeff rows {2 * cs}",
+                    lambda: K.mac_hc_band_int(ring, coeff, 11, band * bl, bl),
+                    lambda: K.mac_reference_hc_band_int(ring, coeff, 11,
+                                                        band * bl, bl),
+                    mac_cost(tuple(ring), tuple(coeff), pt, bl, ht)
+                    if cs == C and bits == 24 and band == 3 else None)
+    # K7 at G = 8: the head call (B = G*R = 64) and the tail call (B = G)
+    for where, p, hp, b in (("head", ph, hh, 64), ("tail", pt, ht, 8)):
+        for cs in (C, 1):
+            hist, coeff = rn(p - 1 + b, 2 * C, hp), rn(p, 2 * cs, hp)
+            run("corr_mac", f"{where} hist [{p - 1 + b}, {2 * C}, {hp}], "
+                f"coeff rows {2 * cs}",
+                lambda: CM.corr_mac(hist, coeff, b),
+                lambda: CM.corr_mac_plain(hist, coeff, b),
+                (_nbytes(hist, coeff) + 2 * b * C * hp * 4,
+                 8 * b * p * C * hp) if cs == C else None)
     return out
 
 
@@ -214,21 +329,22 @@ def _impulse(seed, rows):
 
 
 def _write_wav(name, h):
-    from bfir_tpu.io import wavio
+    from bfir_tpu_torch.io import wavio
 
     path = os.path.join(WORK, name)
     wavio.write(path, h.T, 44100, subtype="float32")
     return path
 
 
-def _config(path, tail_store="auto"):
-    from bfir_tpu.core.spec import (ChainSpec, EngineConfig, FilterSpec,
-                                    ImpulseFileSpec)
+def _config(path, tail_store="auto", mode="auto"):
+    from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig,
+                                          FilterSpec, ImpulseFileSpec)
 
     files = (ImpulseFileSpec(enabled=True, filename=path), ImpulseFileSpec(),
              ImpulseFileSpec())
     return EngineConfig(filter=FilterSpec(N, dtype="float32"),
-                        chain=ChainSpec(files=files), nu_tail_store=tail_store)
+                        chain=ChainSpec(files=files), nu_tail_store=tail_store,
+                        engine_mode=mode)
 
 
 def _worst_snr_db(y, x, h):
@@ -269,18 +385,17 @@ def _timed_blocks(sp, x, what):
         t0 = time.perf_counter()
         outs.append(sp.process(chunk))
         times.append((time.perf_counter() - t0) * 1e3 / (chunk.shape[1] // N))
-    wall, busy, y = _device_busy(sp, x[3])
-    outs.append(y)
     ms = float(np.median(times))
     log(f"{what}: process() {ms:.4f} ms/block (wall, 64-block calls, median "
-        f"of 3, C={C}, N={N}, {TAPS} taps); profiled call: device busy "
-        f"{busy:.3f} of {wall:.3f} ms wall ({100 * busy / wall:.1f}%)")
+        f"of 3, C={C}, N={N}, {TAPS} taps)")
+    outs.append(_device_busy(lambda: sp.process(x[3]), what))
     return ms, outs
 
 
-def _device_busy(sp, x):
-    """One profiled process() call over x: (wall ms, device-busy ms), the
-    busy time summed over the GPU work (kernels and copies) it ran."""
+def _device_busy(fn, what):
+    """One profiled call of fn: logs its wall ms, the device-busy ms (the
+    GPU work it ran, kernels and copies, summed) and the largest device
+    items by name; returns fn's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -288,31 +403,49 @@ def _device_busy(sp, x):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        y = sp.process(x)
+        y = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    return wall, busy, y
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:48]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"{what}: profiled call: device busy {busy:.3f} of {wall:.3f} ms "
+        f"wall ({100 * busy / wall:.1f}%); largest device items (ms): "
+        + "; ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
+    return y
 
 
-def _counts():
+def _kernels():
+    """Every kernel wrapper of the port, by name."""
+    from bfir_tpu_torch.kernels import corr_mac as CM
     from bfir_tpu_torch.kernels import fft_fused as FF
     from bfir_tpu_torch.kernels import spectrum_mac as K
 
-    return {"mac_hc": K.mac_hc.launches,
-            "mac_hc_tiled": K.mac_hc_tiled.launches,
-            "mac_hc_tiled_int": K.mac_hc_tiled_int.launches,
-            "irfft_split_hc_tail_balanced":
-                FF.irfft_split_hc_tail_balanced.launches}
+    return {"mac_hc": K.mac_hc, "mac_hc_tiled": K.mac_hc_tiled,
+            "mac_hc_tiled_int": K.mac_hc_tiled_int,
+            "irfft_split_hc_tail_balanced": FF.irfft_split_hc_tail_balanced,
+            "mac_hc_band": K.mac_hc_band,
+            "mac_hc_band_int": K.mac_hc_band_int, "corr_mac": CM.corr_mac}
 
 
-def _require_advanced(before, after, names, what):
+def run_path(what, names, fn, *args):
+    """Drive one path with every launch count set to 0 just before it and
+    read just after; each kernel in ``names`` must have launched. Returns
+    the counts."""
+    for k in _kernels().values():
+        k.launches = 0
+    fn(*args)
+    counts = {name: k.launches for name, k in _kernels().items()}
     for name in names:
-        if after[name] <= before[name]:
+        if counts[name] == 0:
             raise SystemExit(f"chip_smoke: {what} did not launch {name}")
-    log(f"{what}: launches " + ", ".join(
-        f"{k} {after[k] - before[k]}" for k in after))
+    log(f"{what}: launches " + ", ".join(f"{k} {n}" for k, n in counts.items()
+                                         if n))
+    return counts
 
 
 def _snr_gate(snr, what):
@@ -407,41 +540,194 @@ def session_b(cache):
     return ms
 
 
+def session_c(cache):
+    """The split-tail schedule streaming at the flagship (int24 tail)."""
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    h = _impulse(6, C)
+    sp = StreamProcessor(_config(_write_wav("c.wav", h),
+                                 mode="nonuniform_split"), cache,
+                         device=DEVICE)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((C, 40 * N + 200)).astype(np.float32)
+    t0 = time.perf_counter()
+    y = _stream(sp, x, [3000, 9000])
+    log(f"session C: first process() calls incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s, {y.shape[1] // N} blocks")
+    if sp._impl != "nonuniform_split" or sp._nuspec.tail_store != "int24":
+        raise SystemExit(f"chip_smoke: session C engine {sp._impl!r} "
+                         f"{sp._nuspec}")
+    log(f"session C: engine nonuniform_split, {sp._nuspec}")
+    # one block per call (200 samples stay pending), from phase 0 on: the
+    # wall time of each phase of the M-cycle
+    ratio = sp._nuspec.ratio
+    cycles = 8
+    blocks = rng.standard_normal((cycles * ratio, C, N)).astype(np.float32)
+    per_phase = [[] for _ in range(ratio)]
+    outs = []
+    for blk in blocks:
+        phase = sp._nu_phase()
+        t1 = time.perf_counter()
+        outs.append(sp.process(blk))
+        per_phase[phase].append((time.perf_counter() - t1) * 1e3)
+    med = [float(np.median(v)) for v in per_phase]
+    mean = float(np.mean(med))
+    log("session C: process() wall ms per single-block call by phase "
+        f"(median of {cycles}): " + ", ".join(f"{m:.4f}" for m in med)
+        + f"; worst phase {max(med):.4f} ms = {max(med) / mean:.2f} x the "
+        f"mean {mean:.4f} ms")
+    more = rng.standard_normal((4, C, 64 * N)).astype(np.float32)
+    ms, ys = _timed_blocks(sp, more, "session C (split, int24 tail)")
+    xs = np.concatenate([x, blocks.transpose(1, 0, 2).reshape(C, -1), *more],
+                        axis=1)
+    ys = np.concatenate([y, *outs, *ys], axis=1)
+    _snr_gate(_worst_snr_db(ys, xs[:, :ys.shape[1]], h), "session C")
+    return ms
+
+
+def session_d(cache):
+    """StreamProcessor.render at the flagship: the G-batch bulk scan."""
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    h = _impulse(8, C)
+    sp = StreamProcessor(_config(_write_wav("d.wav", h)), cache,
+                         device=DEVICE)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((C, 3 * 24 * 8 * N)).astype(np.float32)
+    t0 = time.perf_counter()
+    sp.render(x[:, :1000])
+    log(f"session D: first render() incl. the streaming engine's build, the "
+        f"render engine's build and both self-checks "
+        f"{time.perf_counter() - t0:.1f} s")
+    bulk = sp._bulk
+    if (bulk.engine, bulk.nu_engine) != ("nonuniform", "gbatch"):
+        raise SystemExit(f"chip_smoke: session D render engine "
+                         f"{bulk.engine} {getattr(bulk, 'nu_engine', '')}")
+    walls = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        y = sp.render(x)
+        walls.append(time.perf_counter() - t1)
+    wall = min(walls)
+    log(f"session D: render() of {x.shape[1]} frames x {C} ch, engine "
+        f"{bulk.engine}/{bulk.nu_engine}, {bulk.nuspec}: {wall:.3f} s wall "
+        f"(best of 2), {C * x.shape[1] / wall / 1e6:.1f} M samples/s, "
+        f"{wall * 1e3 / (x.shape[1] / N):.4f} ms per {N}-frame block")
+    _device_busy(lambda: sp.render(x), "session D (render)")
+    _snr_gate(_worst_snr_db(y, x, h), "session D (render)")
+    return C * x.shape[1] / wall / 1e6
+
+
+def render_split():
+    """BulkRenderer's split-tail scan at the flagship (float32 tail: K5)."""
+    from bfir_tpu_torch.core.bulk import BulkRenderer
+
+    h = _impulse(10, C)
+    r = BulkRenderer(h, C, nu_engine="split", device=DEVICE)
+    x = np.random.default_rng(11).standard_normal(
+        (C, r.samples_per_dispatch + 5000)).astype(np.float32)
+    t0 = time.perf_counter()
+    y = r.render(x)
+    wall = time.perf_counter() - t0
+    log(f"render (split): {x.shape[1]} frames x {C} ch, {r.nuspec}: "
+        f"{wall:.3f} s wall, {C * x.shape[1] / wall / 1e6:.1f} M samples/s")
+    _snr_gate(_worst_snr_db(y, x, h), "render (split)")
+
+
+def render_short():
+    """A 16384-tap filter through the batch engine (torch.fft only)."""
+    from bfir_tpu_torch.core.bulk import BulkRenderer
+
+    rng = np.random.default_rng(12)
+    t = np.arange(16384)
+    h = rng.standard_normal((C, 16384)) * np.exp(-t / 4096.0)
+    h = (0.5 * h / np.sqrt((h ** 2).sum(axis=1, keepdims=True))).astype(
+        np.float32)
+    r = BulkRenderer(h, C, device=DEVICE)
+    if r.engine != "batch":
+        raise SystemExit(f"chip_smoke: short render engine {r.engine}")
+    x = rng.standard_normal((C, r.samples_per_dispatch + 3000)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    y = r.render(x)
+    wall = time.perf_counter() - t0
+    log(f"render (batch, 16384 taps): {x.shape[1]} frames x {C} ch, "
+        f"{r.spec}: {wall:.3f} s wall")
+    _snr_gate(_worst_snr_db(y, x, h), "render (batch)")
+
+
+def render_cli():
+    """``python -m bfir_tpu_torch.cli.render`` in a subprocess (its
+    default device, CUDA), with HOME inside the work directory so its
+    artifact cache stays in the checkout."""
+    from bfir_tpu_torch.io import wavio
+
+    rng = np.random.default_rng(13)
+    t = np.arange(TAPS)
+    h = (rng.standard_normal((2, TAPS)) * np.exp(-t / 16384.0)
+         * 0.01).astype(np.float32)
+    x = (0.1 * rng.standard_normal((441000, 2))).astype(np.float32)
+    ir, inp, out = (os.path.join(WORK, f"cli_{n}.wav")
+                    for n in ("ir", "in", "out"))
+    wavio.write(ir, h.T, 44100, subtype="float32")
+    wavio.write(inp, x, 44100, subtype="float32")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "bfir_tpu_torch.cli.render", inp, out,
+         "--impulse", ir], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, HOME=WORK))
+    wall = time.perf_counter() - t0
+    if res.returncode:
+        raise SystemExit(f"chip_smoke: the render CLI failed "
+                         f"(exit {res.returncode}):\n{res.stderr[-3000:]}")
+    y, _ = wavio.read(out)
+    log(f"render CLI: {res.stdout.strip()}; {wall:.1f} s for the whole "
+        "process (torch import, engine builds and self-checks included)")
+    _snr_gate(_worst_snr_db(y.T, x.T, h), "render CLI")
+
+
 def main():
     preflight()
-    from bfir_tpu.engine.cache import ArtifactCache
+    from bfir_tpu_torch.engine.cache import ArtifactCache
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     build()
     kernels = check_kernels()
 
-    from bfir_tpu_torch.kernels import fft_fused as FF
-    from bfir_tpu_torch.kernels import spectrum_mac as K
-
-    for fn in (K.mac_hc, K.mac_hc_tiled, K.mac_hc_tiled_int,
-               FF.irfft_split_hc_tail_balanced):
-        fn.launches = 0  # count only the main path from here on
     cache = ArtifactCache(os.path.join(WORK, "profile"))
-    c0 = _counts()
-    session_a(cache)
-    c1 = _counts()
-    _require_advanced(c0, c1, ("mac_hc", "mac_hc_tiled_int",
-                               "irfft_split_hc_tail_balanced"), "session A")
-    session_b(cache)
-    c2 = _counts()
-    _require_advanced(c1, c2, ("mac_hc", "mac_hc_tiled",
-                               "irfft_split_hc_tail_balanced"), "session B")
-    for name, n in c2.items():
+    paths = [
+        ("session A", ("mac_hc", "mac_hc_tiled_int",
+                       "irfft_split_hc_tail_balanced"), session_a, cache),
+        ("session B", ("mac_hc", "mac_hc_tiled",
+                       "irfft_split_hc_tail_balanced"), session_b, cache),
+        ("session C", ("mac_hc", "mac_hc_band_int",
+                       "irfft_split_hc_tail_balanced"), session_c, cache),
+        ("session D", ("corr_mac", "irfft_split_hc_tail_balanced"),
+         session_d, cache),
+        ("render (split)", ("mac_hc", "mac_hc_band",
+                            "irfft_split_hc_tail_balanced"), render_split),
+        ("render (batch)", (), render_short),
+    ]
+    total = dict.fromkeys(kernels, 0)
+    for what, names, fn, *args in paths:
+        counts = run_path(what, names, fn, *args)
+        for name, n in counts.items():
+            total[name] += n
+    for name, n in total.items():
         if n == 0:
-            raise SystemExit(f"chip_smoke: {name} never ran on the main path")
+            raise SystemExit(f"chip_smoke: {name} never ran on the main paths")
+    render_cli()
 
     rows = []
-    for name, (err, ms, plain_ms) in kernels.items():
+    for name, k in kernels.items():
         src, rep = KERNEL_SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": c2[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": rep, "launches": total[name],
+                     "max_abs_err": k["err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"]})
     import torch
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""bfir_tpu_torch kernels K1-K4: each wrapper on CPU tensors (its plain
+"""bfir_tpu_torch kernels K1-K7: each wrapper on CPU tensors (its plain
 PyTorch version) against the bfir_tpu Pallas kernel in interpret mode, on
 the same numpy inputs.
 
@@ -12,8 +12,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from bfir_tpu.core import nubatch as JNB
+from bfir_tpu.kernels import corr_mac as JCM
 from bfir_tpu.kernels import fft_fused as JFF
 from bfir_tpu.kernels import spectrum_mac as JK
+from bfir_tpu_torch.kernels import corr_mac as CM
 from bfir_tpu_torch.kernels import fft_fused as FF
 from bfir_tpu_torch.kernels import spectrum_mac as K
 
@@ -94,6 +97,99 @@ def test_mac_hc_tiled_int_matches_pallas(cs, bits):
     _close(ti, ji)
 
 
+@pytest.mark.parametrize("cs", [C, 1], ids=["per_channel", "shared"])
+@pytest.mark.parametrize("band", [0, 1], ids=["band0", "band1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mac_hc_band_matches_pallas(cs, band, dtype):
+    """K5 over one 128-lane band; the lane-0 law only in band 0."""
+    ring, coeff = _planes(6, cs)
+    jdt = jnp.dtype(dtype)
+    jr, ji = JK.mac_pallas_hc_band(jnp.asarray(ring, jdt),
+                                   jnp.asarray(coeff, jdt), jnp.int32(2),
+                                   band * TILE, TILE, interpret=True)
+    tdt = getattr(torch, dtype)
+    tr, ti = K.mac_hc_band(torch.from_numpy(ring).to(tdt),
+                           torch.from_numpy(coeff).to(tdt), 2, band * TILE,
+                           TILE)
+    assert tr.shape == (C, TILE) and tr.dtype == torch.float32
+    _close(tr, jr)
+    _close(ti, ji)
+    jfr, jfi = JK.mac_reference_hc_band(jnp.asarray(ring, jdt),
+                                        jnp.asarray(coeff, jdt), jnp.int32(2),
+                                        band * TILE, TILE)
+    _close(tr, jfr)
+    _close(ti, jfi)
+    assert K.mac_hc_band.launches == 0
+    with pytest.raises(ValueError, match="128-lane aligned"):
+        K.mac_hc_band(torch.from_numpy(ring), torch.from_numpy(coeff), 2, 64,
+                      TILE)
+    with pytest.raises(ValueError, match="outside"):
+        K.mac_hc_band(torch.from_numpy(ring), torch.from_numpy(coeff), 2,
+                      HP, TILE)
+
+
+@pytest.mark.parametrize("cs", [C, 1], ids=["per_channel", "shared"])
+@pytest.mark.parametrize("band", [0, 1], ids=["band0", "band1"])
+@pytest.mark.parametrize("bits", [24, 16], ids=["int24", "int16"])
+def test_mac_hc_band_int_matches_pallas(cs, band, bits):
+    """K6: K5 on block-scaled integer planes."""
+    ring, coeff = _planes(7, cs)
+    jr_q = JK.quantize_planes(jnp.asarray(ring), bits)
+    jc_q = JK.quantize_planes(jnp.asarray(coeff), bits)
+    jr, ji = JK.mac_pallas_hc_band_int(jr_q, jc_q, jnp.int32(1), band * TILE,
+                                       TILE, interpret=True)
+    tr, ti = K.mac_hc_band_int(K.quantize_planes(torch.from_numpy(ring), bits),
+                               K.quantize_planes(torch.from_numpy(coeff),
+                                                 bits), 1, band * TILE, TILE)
+    _close(tr, jr)
+    _close(ti, ji)
+    assert K.mac_hc_band_int.launches == 0
+
+
+# K7 shapes: at C = 64 and B = 64 the reference kernel's VMEM model cuts
+# the batch into chunks of 16 blocks, so its chunk loop runs too
+@pytest.mark.parametrize("cs", [64, 1], ids=["per_channel", "shared"])
+def test_corr_mac_matches_pallas_and_nubatch(cs):
+    rng = np.random.default_rng(8)
+    p, c, b, hp = 3, 64, 64, 128
+    hist = rng.standard_normal((p - 1 + b, 2 * c, hp)).astype(np.float32)
+    coeff = rng.standard_normal((p, 2 * cs, hp)).astype(np.float32)
+    jr, ji = JCM.corr_mac_pallas(jnp.asarray(hist), jnp.asarray(coeff), b,
+                                 interpret=True)
+    tr, ti = CM.corr_mac(torch.from_numpy(hist), torch.from_numpy(coeff), b)
+    assert tr.shape == (b, c, hp) and tr.dtype == torch.float32
+    _close(tr, jr)
+    _close(ti, ji)
+    nr, ni = JNB._corr_mac(jnp.asarray(hist), jnp.asarray(coeff), b)
+    _close(tr, nr)
+    _close(ti, ni)
+    assert CM.corr_mac.launches == 0
+    with pytest.raises(ValueError, match="P-1\\+B"):
+        CM.corr_mac(torch.from_numpy(hist), torch.from_numpy(coeff), b - 1)
+
+
+def test_corr_mac_bf16_history_matches_nubatch():
+    rng = np.random.default_rng(9)
+    p, c, b, hp = 4, 2, 5, 256
+    hist = rng.standard_normal((p - 1 + b, 2 * c, hp)).astype(np.float32)
+    coeff = rng.standard_normal((p, 2 * c, hp)).astype(np.float32)
+    jh = jnp.asarray(hist, jnp.bfloat16)
+    nr, ni = JNB._corr_mac(jh, jnp.asarray(coeff), b)
+    tr, ti = CM.corr_mac(torch.from_numpy(hist).to(torch.bfloat16),
+                         torch.from_numpy(coeff), b)
+    _close(tr, nr)
+    _close(ti, ni)
+
+
+def test_corr_mac_b_chunk():
+    """The CUDA launch's b split: multiples of 16, at least 32 when split,
+    split only while the lane x channel grid leaves SMs idle."""
+    assert CM._b_chunk(64, 256) == 32  # flagship head: 4 x 64 lane blocks
+    assert CM._b_chunk(8, 2048) == 16  # flagship tail
+    assert CM._b_chunk(64, 4096) == 64
+    assert CM._b_chunk(5, 1) == 16
+
+
 @pytest.mark.parametrize("bits", [24, 16])
 def test_quantize_planes_matches_reference(bits):
     rng = np.random.default_rng(4)
@@ -148,3 +244,7 @@ def test_kernel_wrappers_refuse_other_devices():
         K.mac_hc(ring, ring, 0)
     with pytest.raises(ValueError, match="CUDA"):
         FF.irfft_split_hc_tail_balanced(ring[0], ring[0], 2 * HP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.mac_hc_band(ring, ring, 0, 0, 128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        CM.corr_mac(torch.zeros((P + 1, 2 * C, HP), device="meta"), ring, 2)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from bfir_tpu.core import nonuniform as JNU
 from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.core.spec import FilterSpec as TFilterSpec
 from bfir_tpu.kernels import spectrum_mac as JK
 from bfir_tpu_torch import convert
 from bfir_tpu_torch.core import nonuniform as NU
@@ -130,13 +131,14 @@ def test_state_hand_over_between_packages():
 def test_step_hc_and_crossfade_match_reference():
     rng = np.random.default_rng(23)
     spec = FilterSpec(block_length=64, n_partitions=4, dtype="float32")
+    tspec = TFilterSpec(block_length=64, n_partitions=4, dtype="float32")
     h1 = rng.standard_normal((C, 250)).astype(np.float32)
     h2 = rng.standard_normal((1, 256)).astype(np.float32)  # shared planes
     x = rng.standard_normal((6, C, 64)).astype(np.float32)
     j1, j2 = JK.hc_coeffs(h1, spec, C), JK.hc_coeffs(h2, spec, C, shared=True)
-    t1 = K.hc_coeffs(h1, spec, C, device="cpu")
-    t2 = K.hc_coeffs(h2, spec, C, shared=True, device="cpu")
-    js, ts = JK.init_hc_state(spec, C), K.init_hc_state(spec, C, device="cpu")
+    t1 = K.hc_coeffs(h1, tspec, C, device="cpu")
+    t2 = K.hc_coeffs(h2, tspec, C, shared=True, device="cpu")
+    js, ts = JK.init_hc_state(spec, C), K.init_hc_state(tspec, C, device="cpu")
     for i, blk in enumerate(x):
         if i == 3:
             js, jy = JK.step_hc_crossfade(js, j1, j2, jnp.asarray(blk),

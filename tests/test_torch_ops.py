@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from bfir_tpu.core import convolver as JCV
 from bfir_tpu.core import nonuniform as JNU
 from bfir_tpu.core.spec import FilterSpec
+from bfir_tpu_torch.core.spec import FilterSpec as TFilterSpec
 from bfir_tpu.kernels import spectrum_mac as JK
 from bfir_tpu.ops import equalizer as JEQ
 from bfir_tpu.ops import fft as JF
@@ -112,20 +113,21 @@ def test_count_float_overflow_matches_reference():
 def test_complex_convolver_matches_reference():
     rng = np.random.default_rng(13)
     spec = FilterSpec(block_length=64, n_partitions=4, dtype="float64")
+    tspec = TFilterSpec(block_length=64, n_partitions=4, dtype="float64")
     h = rng.standard_normal((2, 230))
     h2 = rng.standard_normal((2, 256))
     x = rng.standard_normal((7, 2, 64))
     jco = JCV.coeffs_to_spectra(h, spec, scale=0.5)
-    tco = CV.coeffs_to_spectra(h, spec, scale=0.5, device="cpu")
+    tco = CV.coeffs_to_spectra(h, tspec, scale=0.5, device="cpu")
     _close(torch.view_as_real(tco), np.stack([np.real(jco), np.imag(jco)], -1),
            1e-12)
     jst, jy = JCV.process_blocks(JCV.init_state(spec, 2), jco, jnp.asarray(x))
-    tst, ty = CV.process_blocks(CV.init_state(spec, 2, device="cpu"), tco,
+    tst, ty = CV.process_blocks(CV.init_state(tspec, 2, device="cpu"), tco,
                                 torch.from_numpy(x))
     _close(ty, jy, 1e-12)
     assert tst.blockcounter == int(jst.blockcounter) == 7
     jco2 = JCV.coeffs_to_spectra(h2, spec)
-    tco2 = CV.coeffs_to_spectra(h2, spec, device="cpu")
+    tco2 = CV.coeffs_to_spectra(h2, tspec, device="cpu")
     jst, jy = JCV.step_crossfade(jst, jco, jco2, jnp.asarray(x[0]))
     tst, ty = CV.step_crossfade(tst, tco, tco2, torch.from_numpy(x[0]))
     _close(ty, jy, 1e-12)
@@ -139,8 +141,9 @@ def test_hc_and_nu_coeffs_match_reference(precise, shared, store):
     rng = np.random.default_rng(14)
     rows = 1 if shared else 3
     spec = FilterSpec(block_length=64, n_partitions=5, dtype="float32")
+    tspec = TFilterSpec(block_length=64, n_partitions=5, dtype="float32")
     h = rng.standard_normal((rows, 300)).astype(np.float32)
-    _close(K.hc_coeffs(h, spec, 3, scale=0.7, precise=precise, shared=shared,
+    _close(K.hc_coeffs(h, tspec, 3, scale=0.7, precise=precise, shared=shared,
                        device="cpu"),
            JK.hc_coeffs(h, spec, 3, scale=0.7, precise=precise, shared=shared),
            1e-6)

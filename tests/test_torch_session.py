@@ -5,6 +5,7 @@ and input, plus the port's guards.
 Tolerance: float32 engines, 1e-5 x max|reference| against each other and
 against the float64 scipy convolution."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -17,12 +18,13 @@ import torch
 import jax
 from scipy import signal
 
-from bfir_tpu.core.spec import (ChainSpec, EngineConfig, FilterSpec,
-                                ImpulseFileSpec, StreamSpec)
-from bfir_tpu.engine.cache import ArtifactCache
+from bfir_tpu.core import spec as JS
+from bfir_tpu.engine.cache import ArtifactCache as JaxArtifactCache
 from bfir_tpu.engine.session import StreamProcessor as JaxStreamProcessor
-from bfir_tpu.io import wavio
+from bfir_tpu_torch.core import spec as TS
+from bfir_tpu_torch.engine.cache import ArtifactCache
 from bfir_tpu_torch.engine.session import StreamProcessor
+from bfir_tpu_torch.io import wavio
 
 torch.set_num_threads(1)
 
@@ -46,12 +48,15 @@ def _close(got, ref, rel=1e-5):
     np.testing.assert_allclose(got, ref, rtol=0, atol=rel * np.abs(ref).max())
 
 
-def _config(path, mode="nonuniform"):
-    return EngineConfig(
-        filter=FilterSpec(block_length=N, dtype="float32"),
-        stream=StreamSpec(n_channels=2, sample_rate=44100),
-        chain=ChainSpec(files=(ImpulseFileSpec(enabled=True, filename=path),
-                               ImpulseFileSpec(), ImpulseFileSpec())),
+def _config(path, mode="nonuniform", spec=TS):
+    """An EngineConfig of the port (``spec=TS``) or of the reference
+    (``spec=JS``); tests that run both build each from the same kwargs."""
+    return spec.EngineConfig(
+        filter=spec.FilterSpec(block_length=N, dtype="float32"),
+        stream=spec.StreamSpec(n_channels=2, sample_rate=44100),
+        chain=spec.ChainSpec(files=(
+            spec.ImpulseFileSpec(enabled=True, filename=path),
+            spec.ImpulseFileSpec(), spec.ImpulseFileSpec())),
         engine_mode=mode)
 
 
@@ -72,7 +77,8 @@ def _scipy(x, h):
 def test_session_nonuniform_matches_reference(tmp_path, rows):
     path, h = _impulse(tmp_path, "h.wav", rows, 40 + rows)
     cfg = _config(path)
-    jsp = JaxStreamProcessor(cfg, ArtifactCache(str(tmp_path / "jax")))
+    jsp = JaxStreamProcessor(_config(path, spec=JS),
+                             JaxArtifactCache(str(tmp_path / "jax")))
     tsp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "torch")),
                           device="cpu")
     rng = np.random.default_rng(41)
@@ -92,9 +98,8 @@ def test_session_nonuniform_matches_reference(tmp_path, rows):
     # live reconfigure: the head ramps in-block, the tail bridges at its
     # next fire; the stream converges to the new filter
     path2, h2 = _impulse(tmp_path, "h2.wav", rows, 50 + rows)
-    cfg2 = _config(path2)
-    jsp.reconfigure(cfg2)
-    tsp.reconfigure(cfg2)
+    jsp.reconfigure(_config(path2, spec=JS))
+    tsp.reconfigure(_config(path2))
     assert tsp._pending_swap is not None
     x2 = rng.standard_normal((2, 60 * N)).astype(np.float32)
     yj2, yt2 = jsp.process(x2), tsp.process(x2)
@@ -138,8 +143,7 @@ def test_session_guards(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StreamProcessor(cfg, device="cuda")
-    for mode in ("packed", "extended", "nonuniform_split", "nonuniform3",
-                 "sharded"):
+    for mode in ("packed", "extended", "nonuniform3", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StreamProcessor(dataclasses.replace(cfg, engine_mode=mode),
                             device="cpu")
@@ -147,22 +151,50 @@ def test_session_guards(tmp_path):
     sp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "c")), device="cpu")
     x = np.ones((2, 3 * N), np.float32)
     np.testing.assert_array_equal(sp.process(x), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sp.render(x)
+    np.testing.assert_array_equal(sp.render(x), x)  # render passes through too
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Importing every bfir_tpu_torch module leaves jax out of the
-    process."""
+    """Importing every bfir_tpu_torch module leaves jax and every module of
+    bfir_tpu out of the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bfir_tpu_torch\n"
         "for m in pkgutil.walk_packages(bfir_tpu_torch.__path__, 'bfir_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import bfir_tpu_torch.engine.session, bfir_tpu_torch.convert\n"
-        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'bfir_tpu'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
+def _imported_roots(path):
+    """Top-level package of every import statement in a source file,
+    including imports inside functions."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_neither_jax_nor_bfir_tpu():
+    """No file of bfir_tpu_torch, and not chip_smoke.py, names jax or
+    bfir_tpu in an import, even one that runs only on some path."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "bfir_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = [(os.path.relpath(f, ROOT), root) for f in files
+           for root in _imported_roots(f)
+           if root in ("jax", "jaxlib", "bfir_tpu")]
+    assert not bad, bad

@@ -3,17 +3,20 @@
     python -m bfir_tpu_torch.cli.render in.wav out.wav \\
         [--impulse ir.wav [--impulse-level DB]] ... \\
         [--eq "b0,b1,...,b30" --eq-level DB] \\
-        [--block 1024] [--dtype float32] [--out-format pcm24] \\
-        [--device cuda | --cpu]
+        [--block 1024] [--dtype float32] [--out-format pcm24 [--dither]] \\
+        [--delay 0,100 [--subdelay 0,8]] [--device cuda | --cpu]
 
 Counterpart of ``bfir_tpu/cli/render.py``: the input goes through
-``StreamProcessor.render`` (the bulk engine, core/bulk.py) and the exact
+``StreamProcessor.render`` (the bulk engine, core/bulk.py; the streaming
+engine's ``process_buffer`` when a delay line is configured) and the exact
 T filtered frames are written. The default device is CUDA; ``--cpu`` is
-``--device cpu``. Integer output formats are rounded and clipped.
+``--device cpu``. Integer output formats are rounded and clipped; with
+``--dither`` they go through the output stage first (hp-TPDF dither and
+error feedback in float64, a fresh dither state over the whole render).
 The default ``--dtype`` is float32 (the reference's float64 needs the
-extended engine on CUDA, ROADMAP Queue 1 #4). ``--dither``,
-``--delay``/``--subdelay``, ``--serve`` and ``--auto-attenuate`` are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+extended engine on CUDA, ROADMAP Queue 1 #4). ``--serve`` and
+``--auto-attenuate`` are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,11 +24,16 @@ from __future__ import annotations
 import argparse
 import sys
 
-from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig, EqSpec,
-                                      FilterSpec, ImpulseFileSpec,
+import numpy as np
+import torch
+
+from bfir_tpu_torch.core.spec import (ChainSpec, DelaySpec, EngineConfig,
+                                      EqSpec, FilterSpec, ImpulseFileSpec,
                                       SampleFormat, StreamSpec)
 from bfir_tpu_torch.engine.session import StreamProcessor
 from bfir_tpu_torch.io import wavio
+from bfir_tpu_torch.ops import dither as dth
+from bfir_tpu_torch.ops import formats as fm
 
 _SUBTYPE_FOR_FORMAT = {
     "pcm16": (SampleFormat.S16_LE, "pcm16"),
@@ -37,9 +45,6 @@ _SUBTYPE_FOR_FORMAT = {
 
 # flags of the reference CLI whose machinery is not ported yet
 _NOT_PORTED = {
-    "dither": "ROADMAP Queue 1 #5 (output stage)",
-    "delay": "ROADMAP Queue 1 #6 (delay lines)",
-    "subdelay": "ROADMAP Queue 1 #6 (delay lines)",
     "serve": "ROADMAP Queue 1 #8 (servers)",
     "auto_attenuate": "ROADMAP Queue 1 #8 (ops.noise, with the servers)",
 }
@@ -73,15 +78,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
-    p.add_argument("--dither", action="store_true", help="not ported yet")
+    p.add_argument("--dither", action="store_true",
+                   help="hp-TPDF dither + error feedback for integer output "
+                        "formats")
     p.add_argument("--auto-attenuate", action="store_true",
                    help="not ported yet")
     p.add_argument("--serve", type=int, metavar="PORT", default=None,
                    help="not ported yet")
     p.add_argument("--delay", metavar="SAMPLES[,SAMPLES...]",
-                   help="not ported yet")
+                   help="per-channel output delay in samples (one value "
+                        "broadcasts to all channels; delay.cpp:495-600)")
     p.add_argument("--subdelay", metavar="STEPS[,STEPS...]",
-                   help="not ported yet")
+                   help="per-channel fractional delay in 1/16-sample steps "
+                        "(+-15), through the Kaiser-sinc interpolator bank "
+                        "(delay.cpp:182-306; adds 16 samples of latency)")
     return p
 
 
@@ -108,13 +118,39 @@ def config_from_args(args) -> EngineConfig:
         eq = EqSpec(enabled=True, mag_steps=tuple(mags),
                     level_steps=int(round(args.eq_level * 10)))
     out_fmt, _ = _SUBTYPE_FOR_FORMAT[args.out_format]
+    delay = DelaySpec()
+    if args.delay or args.subdelay:
+        samples = (tuple(int(v) for v in args.delay.split(","))
+                   if args.delay else (0,))
+        substeps = (tuple(int(v) for v in args.subdelay.split(","))
+                    if args.subdelay else (0,))
+        delay = DelaySpec(enabled=True, samples=samples,
+                          subsample_steps=substeps)
     return EngineConfig(
         filter=FilterSpec(block_length=args.block, n_partitions=1,
                           dtype=args.dtype),
-        stream=StreamSpec(out_format=out_fmt),
+        stream=StreamSpec(out_format=out_fmt, apply_dither=args.dither),
         chain=ChainSpec(eq=eq, files=tuple(files)),
+        delay=delay,
         engine_mode=args.engine_mode,
     )
+
+
+def dither_output(y: np.ndarray, fmt: SampleFormat, device) -> np.ndarray:
+    """The output stage with a fresh dither state over a whole render
+    ``y`` [C, T], in float64 on ``device``; returns the quantized samples
+    at +-1 full scale (they round-trip exactly through the WAV writer)."""
+    c = y.shape[0]
+    dst = dth.init_dither_state(c, dtype=torch.float64, device=device)
+    of = dth.init_overflow_stats(c, dtype=torch.float64, device=device)
+    q, of, _ = fm.output_stage(
+        torch.from_numpy(np.ascontiguousarray(y, dtype=np.float64)).to(device),
+        fmt, of, dst)
+    n_clipped = int(of.n_overflows.sum())
+    if n_clipped:
+        print(f"warning: {n_clipped} samples clipped during dither",
+              file=sys.stderr)
+    return q.cpu().numpy().astype(np.float64) / fmt.full_scale
 
 
 def main(argv=None) -> int:
@@ -126,7 +162,9 @@ def main(argv=None) -> int:
     y = sp.render(x, sample_rate=rate)
     if not sp._active:
         print("no chain configured; passing through", file=sys.stderr)
-    _, subtype = _SUBTYPE_FOR_FORMAT[args.out_format]
+    out_fmt, subtype = _SUBTYPE_FOR_FORMAT[args.out_format]
+    if args.dither and not out_fmt.isfloat:
+        y = dither_output(y, out_fmt, sp.device)
     wavio.write(args.output, y.T, rate, subtype=subtype)
     of = sp.overflow_stats()
     if of is not None and int(of.n_overflows.sum()) > 0:

@@ -10,6 +10,14 @@ reference's order. ``blockcounter`` is an int32 scalar in the reference
 and a host int here. bf16 planes come back to numpy as float32 (numpy has
 no bfloat16; the widening is exact).
 
+``PackedState``, ``DelayState`` and ``OverflowStats`` convert field for
+field. ``DitherState`` carries ``e0``, ``e1`` and ``prev_byte``; the
+reference's threefry ``key`` has no counterpart, so ``*_from_numpy`` seeds
+the port's generator from ``seed`` and ``*_to_numpy`` returns
+``generator=None`` (a reference state resumed from it takes a key of its
+own). The dither noise after a move is therefore new noise, with the error
+feedback carried over.
+
 ``NuSplitState`` (the split-tail schedule) converts field for field too,
 and a state made by ``bfir_tpu`` on the CPU resumes exactly at any phase.
 One made on a TPU resumes exactly at every phase but 1: after phase 0 its
@@ -24,7 +32,10 @@ import numpy as np
 import torch
 
 from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuSplitState, NuState
-from bfir_tpu_torch.kernels.spectrum_mac import HcState, IntPlanes
+from bfir_tpu_torch.kernels.spectrum_mac import HcState, IntPlanes, PackedState
+from bfir_tpu_torch.ops.delay import DelayState
+from bfir_tpu_torch.ops.dither import (DitherState, OverflowStats,
+                                       init_dither_state)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -114,3 +125,49 @@ def nu_coeffs_from_numpy(co, device) -> NuCoeffs:
 def nu_coeffs_to_numpy(co: NuCoeffs) -> NuCoeffs:
     return NuCoeffs(head=planes_to_numpy(co.head),
                     tail=planes_to_numpy(co.tail))
+
+
+def packed_state_from_numpy(st, device) -> PackedState:
+    return PackedState(ring=tensor_from_numpy(st.ring, device),
+                       prev_block=tensor_from_numpy(st.prev_block, device),
+                       blockcounter=int(np.asarray(st.blockcounter)))
+
+
+def packed_state_to_numpy(st: PackedState) -> PackedState:
+    return PackedState(ring=tensor_to_numpy(st.ring),
+                       prev_block=tensor_to_numpy(st.prev_block),
+                       blockcounter=np.asarray(st.blockcounter, dtype=np.int32))
+
+
+def dither_state_from_numpy(st, device, seed: int = 1) -> DitherState:
+    """``e0``, ``e1`` and ``prev_byte`` of ``st``; a generator seeded from
+    ``seed`` on ``device``."""
+    e0 = tensor_from_numpy(st.e0, device)
+    gen = init_dither_state(e0.shape[0], seed, e0.dtype,
+                            device=device).generator
+    return DitherState(e0=e0, e1=tensor_from_numpy(st.e1, device),
+                       prev_byte=tensor_from_numpy(
+                           np.asarray(st.prev_byte, dtype=np.int32), device),
+                       generator=gen)
+
+
+def dither_state_to_numpy(st: DitherState) -> DitherState:
+    return DitherState(e0=tensor_to_numpy(st.e0), e1=tensor_to_numpy(st.e1),
+                       prev_byte=tensor_to_numpy(st.prev_byte),
+                       generator=None)
+
+
+def delay_state_from_numpy(st, device) -> DelayState:
+    return DelayState(history=tensor_from_numpy(st.history, device))
+
+
+def delay_state_to_numpy(st: DelayState) -> DelayState:
+    return DelayState(history=tensor_to_numpy(st.history))
+
+
+def overflow_stats_from_numpy(of, device) -> OverflowStats:
+    return OverflowStats(*(tensor_from_numpy(v, device) for v in of))
+
+
+def overflow_stats_to_numpy(of: OverflowStats) -> OverflowStats:
+    return OverflowStats(*(tensor_to_numpy(v) for v in of))

@@ -1,9 +1,10 @@
-// Halfcomplex ring MAC for Hopper (sm_90a): kernels K1, K2, K3, K5 and K6
-// of the port.
+// Ring MAC for Hopper (sm_90a): kernels K1, K2, K3, K5, K6 and K8 of the
+// port.
 //
 // Replaces bfir_tpu/kernels/spectrum_mac.py::mac_pallas_hc (K1),
 // ::mac_pallas_hc_tiled (K2), ::mac_pallas_hc_tiled_int (K3),
-// ::mac_pallas_hc_band (K5) and ::mac_pallas_hc_band_int (K6).
+// ::mac_pallas_hc_band (K5), ::mac_pallas_hc_band_int (K6) and
+// ::mac_pallas_packed (K8).
 //
 //   y[c, k] = sum_p coeff[p, c, b0 + k] * ring[(pos - p) mod P, c, b0 + k]
 //
@@ -13,13 +14,19 @@
 // band per streaming phase. Global lane 0 carries (DC.re, Nyquist.re), so
 // its product is two real products, not a complex one; other bands have no
 // such lane. Shared coefficients are [P, 2, Hp], read for every channel.
+// K8, the packed engine's MAC, is the same sum over split planes
+// [P, 2C, Fp] (Fp = N + 1 rounded up to 128) without the lane-0 law: its
+// lane 0 is DC as a full complex value. A template switch drops the law.
 //
 // What bounds it on the H100: device-memory bandwidth. Per partition and
 // lane it reads four plane values and does eight flops, about half a flop
 // per byte in float32, forty times under the card's float32 ridge. At the
 // two-stage tail (14 x 128 x 8192 ring and coefficients) one call streams
 // about 117 MB in float32 and 88 MB in int24; one of its eight bands an
-// eighth of that.
+// eighth of that. K8 at the packed flagship (128 x 128 x 1152 ring and
+// coefficients) reads only the N + 1 = 1025 live lanes of each row (1028,
+// four to a vector): 135 MB, nearly three times the 50 MB L2, so its calls
+// read from HBM.
 //
 // Design: one thread owns four neighbouring lanes of one channel and loads
 // them as one 16-byte (float32) or 8-byte (bf16, int16) vector, so a warp
@@ -92,7 +99,7 @@ __device__ __forceinline__ void cmac(float& ar, float& ai, float cr, float ci,
   ai += cr * ri + ci * rr;
 }
 
-template <int RK, int CK>
+template <int RK, int CK, bool kLane0>
 __global__ void __launch_bounds__(kThreads)
     mac_hc_kernel(Planes ring, Planes coeff, float* __restrict__ yr,
                   float* __restrict__ yi, int P, int C, int Cs, int hp,
@@ -113,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
     const float4 ri = load4<RK>(ring, r_row + C, hp, lane);
     const float4 cr = load4<CK>(coeff, c_row, hp, lane);
     const float4 ci = load4<CK>(coeff, c_row + Cs, hp, lane);
-    if (lane == 0) {  // (DC.re, Nyquist.re): two real products
+    if (kLane0 && lane == 0) {  // (DC.re, Nyquist.re): two real products
       ar.x += cr.x * rr.x;
       ai.x += ci.x * ri.x;
     } else {
@@ -128,12 +135,12 @@ __global__ void __launch_bounds__(kThreads)
   *reinterpret_cast<float4*>(yi + o) = ai;
 }
 
-template <int RK, int CK>
+template <int RK, int CK, bool kLane0 = true>
 void launch(const Planes& r, const Planes& g, float* yr, float* yi, int P,
             int C, int Cs, int hp, int b0, int bl, int pos, cudaStream_t s) {
   const dim3 grid((bl / 4 + kThreads - 1) / kThreads, C);
-  mac_hc_kernel<RK, CK><<<grid, kThreads, 0, s>>>(r, g, yr, yi, P, C, Cs, hp,
-                                                 b0, bl, pos);
+  mac_hc_kernel<RK, CK, kLane0><<<grid, kThreads, 0, s>>>(
+      r, g, yr, yi, P, C, Cs, hp, b0, bl, pos);
 }
 
 }  // namespace
@@ -166,6 +173,24 @@ extern "C" int bfir_mac_hc(const void* r_a, const void* r_lo,
     case kI16 * 4 + kI16: launch<kI16, kI16>(r, g, yr, yi, P, C, Cs, hp, b0, bl, pos, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: the packed MAC over float32 ring and coefficients [P, 2C, fp] (no
+// lane-0 law, per-channel coefficients) on the first ``lanes`` lanes of each
+// row -> yr, yi [C, lanes]. The engine passes N + 1 bins rounded up to 4, so
+// the zero lanes that pad a row to fp are neither read nor written. fp and
+// lanes are multiples of 4, lanes <= fp; 0 <= pos < P.
+extern "C" int bfir_mac_packed(const float* ring, const float* coeff,
+                               float* yr, float* yi, int P, int C, int fp,
+                               int lanes, int pos, void* stream) {
+  if (P < 1 || C < 1 || fp < 4 || fp % 4 || lanes < 4 || lanes % 4 ||
+      lanes > fp || pos < 0 || pos >= P)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Planes r{ring, nullptr, nullptr};
+  const Planes g{coeff, nullptr, nullptr};
+  launch<kF32, kF32, false>(r, g, yr, yi, P, C, C, fp, 0, lanes, pos,
+                            static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # r_a, r_lo, r_scale, r_kind, c_a, c_lo, c_scale, c_kind, yr, yi,
     # P, C, Cs, hp, band_start, band_len, pos, stream
@@ -43,6 +44,11 @@ _SIGNATURES = {
                            _P],
     # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, b_chunk, stream
     "bfir_corr_mac": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ring, coeff, yr, yi, P, C, fp, lanes, pos, stream
+    "bfir_mac_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, dv, e0, e1, nof, lg, ilg, q, e0', e1', nof', lg', ilg', C, T,
+    # imin, imax, is_f64, stream
+    "bfir_quantize_hp_tpdf": [_P] * 13 + [_I, _I, _D, _D, _I, _P],
 }
 
 

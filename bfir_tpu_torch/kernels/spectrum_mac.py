@@ -1,4 +1,5 @@
-"""The halfcomplex engine and its ring-MAC kernels (K1-K3, K5, K6).
+"""The halfcomplex and packed engines and their ring-MAC kernels (K1-K3,
+K5, K6, K8).
 
 Counterpart of ``bfir_tpu/kernels/spectrum_mac.py``. The ring of input
 spectra stays fixed in memory, one slot is overwritten per block, and the
@@ -6,9 +7,12 @@ MAC reads partition p from slot ``(pos - p) mod P`` (brutefir's
 ``(blockcounter - i) % n_blocks``). Spectra are packed halfcomplex planes
 ``[P, 2C, Hp]``: re rows, then im rows; lane 0 = (DC.re, Nyquist.re);
 ``Hp`` is n_fft/2 rounded up to 128. Shared coefficients are ``[P, 2, Hp]``.
+The packed engine keeps split re/im planes ``[P, 2C, Fp]`` of the full
+N + 1 bins, ``Fp`` = N + 1 rounded up to 128, with no lane-0 law.
 
-Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int`` and the
-split-tail schedule's one-band ``mac_hc_band``, ``mac_hc_band_int``) take
+Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int``, the
+split-tail schedule's one-band ``mac_hc_band``, ``mac_hc_band_int`` and the
+packed engine's ``mac_packed``) take
 their plain PyTorch version for CPU tensors and launch the CUDA kernel in
 ``csrc/mac_hc.cu`` for CUDA tensors (or raise); each counts its launches in
 its ``launches`` attribute. ``blockcounter`` is a host int, so no step reads
@@ -18,6 +22,7 @@ state passed to a step must not be used again.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -111,6 +116,28 @@ def mac_hc_plain(ring, coeff, pos: int, lane0: bool = True):
     cs = coeff.shape[1] // 2
     return mac_reference_hc(ring[:, :c], ring[:, c:], coeff[:, :cs],
                             coeff[:, cs:], pos, lane0)
+
+
+# ``y = sum_p coeff[p] * ring[(pos - p) mod P]``, a complex multiply on split
+# planes (ring_re, ring_im, coeff_re, coeff_im, pos): the packed engine's MAC
+mac_reference = functools.partial(mac_reference_hc, lane0=False)
+
+
+def _packed_lanes(fp: int, n_freq: int) -> int:
+    """The lanes K8 computes: ``n_freq`` rounded up to the kernel's 4-lane
+    vectors."""
+    if not 1 <= n_freq <= fp:
+        raise ValueError(f"n_freq {n_freq} outside [1, Fp={fp}]")
+    return min(_round_up(n_freq, 4), fp)
+
+
+def mac_packed_plain(ring_pk, coeff_pk, pos: int, n_freq: int):
+    """Plain version of K8: ``mac_hc_plain`` without the lane-0 law on
+    packed planes [P, 2C, Fp], over the first ``n_freq`` lanes rounded up
+    to 4 -> (yr, yi) [C, that many lanes]."""
+    nb = _packed_lanes(ring_pk.shape[-1], n_freq)
+    return mac_hc_plain(ring_pk[..., :nb], coeff_pk[..., :nb], pos,
+                        lane0=False)
 
 
 def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos: int):
@@ -288,11 +315,43 @@ def mac_hc_band_int(ring: IntPlanes, coeff: IntPlanes, pos: int,
     return out
 
 
+def mac_packed(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
+               n_freq: int):
+    """K8: the packed engine's ring MAC over float32 ring and coefficients
+    [P, 2C, Fp] (re rows, then im rows; no lane-0 law) -> (yr, yi) float32
+    [C, L], L = ``n_freq`` rounded up to 4 (at most Fp). The engine passes
+    its N + 1 bins, so the kernel neither reads nor writes the zero lanes
+    that pad a row to Fp. Replaces ``spectrum_mac.mac_pallas_packed``."""
+    if ring_pk.device.type == "cpu":
+        return mac_packed_plain(ring_pk, coeff_pk, pos, n_freq)
+    dev = ring_pk.device
+    cuda_lib.require_cuda(ring_pk, "ring", (torch.float32,), dev)
+    cuda_lib.require_cuda(coeff_pk, "coeff", (torch.float32,), dev)
+    p, c2, fp = ring_pk.shape
+    if c2 % 2 or tuple(coeff_pk.shape) != (p, c2, fp):
+        raise ValueError(f"ring {list(ring_pk.shape)} and coefficients "
+                         f"{list(coeff_pk.shape)} must both be [P, 2C, Fp]")
+    if fp % 4:
+        raise ValueError(f"Fp {fp} must be a multiple of 4")
+    c, nb = c2 // 2, _packed_lanes(fp, n_freq)
+    yr = torch.empty((c, nb), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.bfir_mac_packed(ring_pk.data_ptr(), coeff_pk.data_ptr(),
+                                  yr.data_ptr(), yi.data_ptr(), p, c, fp, nb,
+                                  pos % p, cuda_lib.stream_of(yr))
+    cuda_lib.check(err, "mac_packed")
+    mac_packed.launches += 1
+    return yr, yi
+
+
 mac_hc.launches = 0
 mac_hc_tiled.launches = 0
 mac_hc_tiled_int.launches = 0
 mac_hc_band.launches = 0
 mac_hc_band_int.launches = 0
+mac_packed.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -410,3 +469,113 @@ def step_hc_crossfade(state: HcState, coeff_old: torch.Tensor,
     ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
     out = out_old * (1.0 - ramp) + out_new * ramp
     return HcState(state.ring, prev, state.blockcounter + 1), out
+
+
+# ---------------------------------------------------------------------------
+# The packed streaming engine (full-width split planes, K8)
+# ---------------------------------------------------------------------------
+
+
+class PackedState(NamedTuple):
+    """Packed streaming state: ring [P, 2C, Fp] (re rows 0..C-1, im rows
+    C..2C-1), prev_block [C, N], blockcounter a host int."""
+
+    ring: torch.Tensor
+    prev_block: torch.Tensor
+    blockcounter: int
+
+
+def init_packed_state(spec: FilterSpec, n_channels: int, *,
+                      device) -> PackedState:
+    fp = _round_up(spec.n_freq, 128)
+    dt = getattr(torch, spec.dtype)
+    return PackedState(
+        ring=torch.zeros((spec.n_partitions, 2 * n_channels, fp), dtype=dt,
+                         device=device),
+        prev_block=torch.zeros((n_channels, spec.block_length), dtype=dt,
+                               device=device),
+        blockcounter=0,
+    )
+
+
+def split_coeffs(impulse, spec: FilterSpec, scale: float = 1.0, *, device):
+    """Partition spectra as split planes (re, im), each [P, C, Fp], computed
+    on the host in the engine dtype and moved to ``device``."""
+    dt = getattr(torch, spec.dtype)
+    h = (torch.as_tensor(np.asarray(impulse), dtype=dt)
+         * torch.tensor(scale, dtype=dt))
+    if h.ndim == 1:
+        h = h[None, :]
+    c, taps = h.shape
+    n, p = spec.block_length, spec.n_partitions
+    if taps > n * p:
+        h = h[:, : n * p]
+    else:
+        h = torch.nn.functional.pad(h, (0, n * p - taps))
+    parts = h.reshape(c, p, n).transpose(0, 1)
+    cr, ci = F.rfft_split(parts, n=spec.n_fft)
+    pad = _round_up(spec.n_freq, 128) - cr.shape[-1]
+    return (torch.nn.functional.pad(cr, (0, pad)).to(device),
+            torch.nn.functional.pad(ci, (0, pad)).to(device))
+
+
+def pack_coeffs(impulse, spec: FilterSpec, n_channels: int,
+                scale: float = 1.0, *, device) -> torch.Tensor:
+    """``split_coeffs`` stacked to [P, 2C, Fp] (one filter broadcast to
+    ``n_channels``)."""
+    cr, ci = split_coeffs(impulse, spec, scale, device=device)
+    p, c0, fp = cr.shape
+    if c0 != n_channels:
+        cr = cr.expand(p, n_channels, fp)
+        ci = ci.expand(p, n_channels, fp)
+    return torch.cat([cr, ci], dim=1)
+
+
+def _packed_advance(state: PackedState, block: torch.Tensor):
+    """Frame [prev | block], its spectrum written into ring slot
+    ``blockcounter % P`` in place. Returns (new prev_block, pos); the new
+    prev_block is a view of the frame."""
+    p, _, fp = state.ring.shape
+    n = block.shape[-1]
+    frame = torch.cat([state.prev_block, block.to(state.prev_block.dtype)],
+                      dim=-1)
+    xr, xi = F.rfft_split(frame)
+    pad = fp - (n + 1)
+    pos = state.blockcounter % p
+    state.ring[pos] = torch.cat([torch.nn.functional.pad(xr, (0, pad)),
+                                 torch.nn.functional.pad(xi, (0, pad))], dim=0)
+    return frame[:, n:], pos
+
+
+def _packed_mac_tail(ring, coeff_pk, pos: int, n: int, dtype) -> torch.Tensor:
+    """K8 over the N + 1 live bins, then the overlap-save tail of the
+    inverse."""
+    f = n + 1
+    yr, yi = mac_packed(ring, coeff_pk, pos, f)
+    return F.irfft_split(yr[..., :f].to(dtype), yi[..., :f].to(dtype),
+                         n=2 * n)[..., n:]
+
+
+def step_packed(state: PackedState, coeff_pk: torch.Tensor,
+                block: torch.Tensor) -> Tuple[PackedState, torch.Tensor]:
+    """One streaming block on the packed representation: frame rfft, ring
+    insert (in place), K8 MAC, overlap-save tail."""
+    prev, pos = _packed_advance(state, block)
+    out = _packed_mac_tail(state.ring, coeff_pk, pos, block.shape[-1],
+                           prev.dtype)
+    return PackedState(state.ring, prev, state.blockcounter + 1), out
+
+
+def step_packed_crossfade(state: PackedState, coeff_old: torch.Tensor,
+                          coeff_new: torch.Tensor, block: torch.Tensor
+                          ) -> Tuple[PackedState, torch.Tensor]:
+    """A filter-change block on the packed engine: one ring advance, two K8
+    MACs (old and new coefficients) and a linear ramp old -> new over the
+    block (fftw_convolver.cpp:275-321)."""
+    n = block.shape[-1]
+    prev, pos = _packed_advance(state, block)
+    out_old = _packed_mac_tail(state.ring, coeff_old, pos, n, prev.dtype)
+    out_new = _packed_mac_tail(state.ring, coeff_new, pos, n, prev.dtype)
+    ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
+    out = out_old * (1.0 - ramp) + out_new * ramp
+    return PackedState(state.ring, prev, state.blockcounter + 1), out

@@ -1,14 +1,95 @@
-"""Output-format accounting for float outputs.
+"""PCM sample-format codecs and the output stage.
 
-Counterpart of ``count_float_overflow`` in ``bfir_tpu/ops/formats.py``; the
-integer output stage is not ported yet.
+Counterpart of ``bfir_tpu/ops/formats.py`` (reference ``raw2real`` and
+``real2raw``):
+
+- the byte packing (endianness, 24-bit samples in 3 bytes, padded
+  ``S24_4*`` containers with their shift) is numpy on the host: ``decode``,
+  ``encode_int``, ``encode_float``. The reference calls its numpy codec
+  exact-equivalent to its native one; this is that numpy codec;
+- the scaling and quantization (real2raw.cpp:38-1224) run on the tensor's
+  device: ``output_stage`` scales to the integer domain and requantizes with
+  hp-TPDF dither and error feedback (``ops.dither``, kernel K9 on CUDA) or
+  mid-tread rounding; float outputs are never clipped, only counted
+  (REAL_OVERFLOW_UPDATE, real2raw.cpp:17-32).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
-from bfir_tpu_torch.ops.dither import OverflowStats
+from bfir_tpu_torch.core.spec import SampleFormat
+from bfir_tpu_torch.ops import dither as dth
+from bfir_tpu_torch.ops.dither import DitherState, OverflowStats
+
+
+def _np_int_dtype(fmt: SampleFormat):
+    e = ">" if fmt.big_endian else "<"
+    if fmt.bytes == 1:
+        return np.dtype(np.int8)
+    return np.dtype(f"{e}i{fmt.bytes}")
+
+
+def decode(raw, fmt: SampleFormat, n_channels: int,
+           dtype=np.float64) -> np.ndarray:
+    """Interleaved raw PCM bytes -> float [C, N] at +-1 full scale (raw2real
+    with the input ``sf.scale``, brutefir.cpp:435-539). A trailing partial
+    frame is dropped."""
+    buf = (np.frombuffer(raw, dtype=np.uint8)
+           if isinstance(raw, (bytes, bytearray))
+           else np.asarray(raw, dtype=np.uint8))
+    frame_bytes = fmt.bytes * n_channels
+    n = buf.size // frame_bytes
+    buf = buf[: n * frame_bytes]
+    if fmt.isfloat:
+        fdt = np.dtype((">" if fmt.big_endian else "<")
+                       + ("f4" if fmt.bytes == 4 else "f8"))
+        x = buf.view(fdt).astype(dtype)
+    elif fmt.bytes == 3:
+        b = buf.reshape(-1, 3)
+        if fmt.big_endian:
+            b = b[:, ::-1]
+        i32 = (b[:, 0].astype(np.int32)
+               | (b[:, 1].astype(np.int32) << 8)
+               | (b[:, 2].astype(np.int32) << 16))
+        i32 = (i32 << 8) >> 8
+        x = i32.astype(dtype) / fmt.full_scale
+    else:
+        ints = buf.view(_np_int_dtype(fmt)).astype(np.int64)
+        if fmt.sbytes != fmt.bytes:  # padded container: the high sbytes
+            ints = ints >> ((fmt.bytes - fmt.sbytes) * 8)
+        x = ints.astype(dtype) / fmt.full_scale
+    return x.reshape(n, n_channels).T.copy()
+
+
+def encode_int(q: np.ndarray, fmt: SampleFormat) -> bytes:
+    """Quantized int32 samples [C, N] -> interleaved raw bytes."""
+    if fmt.isfloat:
+        raise ValueError("encode_int is for integer formats")
+    inter = np.asarray(q, dtype=np.int64).T.reshape(-1)
+    if fmt.bytes == 3:
+        flat = inter.astype(np.int32)
+        b = np.empty((flat.size, 3), dtype=np.uint8)
+        b[:, 0] = flat & 0xFF
+        b[:, 1] = (flat >> 8) & 0xFF
+        b[:, 2] = (flat >> 16) & 0xFF
+        if fmt.big_endian:
+            b = b[:, ::-1]
+        return b.tobytes()
+    if fmt.sbytes != fmt.bytes:
+        inter = inter << ((fmt.bytes - fmt.sbytes) * 8)
+    return inter.astype(_np_int_dtype(fmt)).tobytes()
+
+
+def encode_float(x: np.ndarray, fmt: SampleFormat) -> bytes:
+    """Float samples [C, N] at +-1 full scale -> interleaved raw bytes."""
+    if not fmt.isfloat:
+        raise ValueError("encode_float is for float formats")
+    e = ">" if fmt.big_endian else "<"
+    return np.asarray(x).T.astype(np.dtype(f"{e}f{fmt.bytes}")).tobytes()
 
 
 def count_float_overflow(x: torch.Tensor, of: OverflowStats,
@@ -19,3 +100,36 @@ def count_float_overflow(x: torch.Tensor, of: OverflowStats,
     n_of = of.n_overflows + (mag > fmax).sum(dim=1, dtype=torch.int32)
     largest = torch.maximum(of.largest, mag.amax(dim=1).to(of.largest.dtype))
     return OverflowStats(n_of, largest, of.intlargest)
+
+
+def output_stage(y: torch.Tensor, fmt: SampleFormat, of: OverflowStats,
+                 dither_state: Optional[DitherState] = None
+                 ) -> Tuple[torch.Tensor, OverflowStats,
+                            Optional[DitherState]]:
+    """Engine-domain output [C, N] (+-1 full scale) -> the output format's
+    numeric domain, on ``y``'s device:
+
+    - float formats: ``y`` itself, overflow counted, never clipped;
+    - integer formats with ``dither_state``: scaled to the integer domain,
+      hp-TPDF dither, error feedback and clip (convolver_cbuf2raw with
+      apply_dither, fftw_convolver.cpp:405-466);
+    - integer formats without: mid-tread rounding and clip.
+
+    Returns (samples, new overflow stats, new dither state): float samples
+    for ``encode_float``, int32 for ``encode_int``."""
+    if fmt.isfloat:
+        return y, count_float_overflow(y, of), dither_state
+    scaled = y * y.new_tensor(fmt.full_scale)
+    if dither_state is not None:
+        q, dither_state, of = dth.quantize_hp_tpdf(scaled, fmt.imin,
+                                                   fmt.imax, dither_state, of)
+    else:
+        q, of = dth.quantize_no_dither(scaled, fmt.imin, fmt.imax, of)
+    return q, of, dither_state
+
+
+def input_stage(raw, fmt: SampleFormat, n_channels: int,
+                dtype=np.float32) -> np.ndarray:
+    """Raw input bytes -> the engine float domain (raw2cbuf's raw2real
+    call, fftw_convolver.cpp:156-185)."""
+    return decode(raw, fmt, n_channels, dtype=dtype)

@@ -11,12 +11,16 @@ Phases (any failure exits non-zero before the last line is printed):
 1. preflight: the card's name and power limit; refuses to run without CUDA;
 2. build: compiles the kernels from ``bfir_tpu_torch/csrc`` (one nvcc per
    source, side by side);
-3. kernels: each of K1-K7 against its plain PyTorch version on the card,
-   at the shapes its path gives it (64 channels, N = 1024, M = 8192, G = 8),
-   with the max error, the device time per call (torch.profiler) of kernel,
-   plain version and, where one exists, the one PyTorch call computing the
-   same function, and the least time the card could take (bytes over
-   3.35 TB/s or flops over 67 TFLOP/s float32, the larger);
+3. kernels: each of K1-K9 against its plain PyTorch version on the card,
+   at the shapes its path gives it (64 channels, N = 1024, M = 8192, G = 8,
+   the packed ring [128, 128, 1152] over its 1025 live lanes, the
+   requantizer [64, 1024]), with the
+   max error, the device time per call (torch.profiler) of kernel, plain
+   version and, where one exists, the one PyTorch call computing the same
+   function, and the least time the card could take (bytes over 3.35 TB/s
+   or flops over 67 TFLOP/s float32, the larger); K9 must equal its plain
+   version bit for bit, also at [64, 65536] against the plain loop on the
+   CPU;
 4. session A: a 64-channel x 131072-tap impulse WAV streamed through
    ``StreamProcessor(..., device="cuda").process`` in uneven chunks; the
    two-stage engine with the int24 tail; worst-channel SNR against scipy;
@@ -30,9 +34,18 @@ Phases (any failure exits non-zero before the last line is printed):
 8. two further renders: ``BulkRenderer(..., nu_engine="split")`` at the
    flagship, and a 16384-tap filter through the batch engine;
 9. the render CLI as a user runs it: ``python -m bfir_tpu_torch.cli.render``
-   in a subprocess on a 2-channel WAV and a 131072-tap impulse WAV; SNR.
+   in a subprocess on a 2-channel WAV and a 131072-tap impulse WAV; SNR;
+10. session E: raw S24 bytes through ``StreamProcessor.process_raw`` with
+    the packed engine (K8), per-channel delays 7 c and hp-TPDF dither (K9):
+    (a) float output against scipy shifted by the delays, (b) the dithered
+    S24 output within 5 LSB plus (a)'s error and 0.5-1.5 LSB RMS, (c) a
+    live reconfigure with new delays (a K8 crossfade, no rebuild), (d)
+    ``FractionalDelayLine`` on the card against its CPU run; ms per block by
+    phase (decode, engine, output stage, encode) and the device-busy share;
+11. the render CLI again with ``--delay 0,100``, float32 and then
+    ``--out-format pcm24 --dither``: gate (b) on the dithered WAV.
 
-The launch counters are zeroed just before each path (sessions A-D, the
+The launch counters are zeroed just before each path (sessions A-E, the
 two renders) and read just after it; each path must have launched its
 kernels. The last two lines are a JSON object describing the kernels and
 the ``{"ok": true, ...}`` result.
@@ -54,6 +67,7 @@ N = 1024          # block length
 TAPS = 131072     # impulse length: P = 128 partitions
 MIN_SNR_DB = 110.0
 REL_TOL = 1e-5    # kernel vs plain: float32 sums in another order
+LSB24 = 2.0 ** -23  # one step of 24-bit output at +-1 full scale
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
@@ -73,6 +87,10 @@ KERNEL_SOURCES = {
                         "bfir_tpu/kernels/spectrum_mac.py:870"),
     "corr_mac": ("bfir_tpu_torch/csrc/corr_mac.cu",
                  "bfir_tpu/kernels/corr_mac.py:56"),
+    "mac_packed": ("bfir_tpu_torch/csrc/mac_hc.cu",
+                   "bfir_tpu/kernels/spectrum_mac.py:45"),
+    "quantize_hp_tpdf": ("bfir_tpu_torch/csrc/dither_q.cu",
+                         "bfir_tpu/kernels/dither_kernel.py:25"),
 }
 
 
@@ -150,17 +168,17 @@ def _event_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def _time_pair(name, variant, kernel, plain, library=None):
-    """Device ms per call of the kernel, its plain version and the library
-    call (None where there is none), logged beside the CUDA-event medians
-    of kernel and plain."""
-    ms = (_device_ms(kernel), _device_ms(plain),
+def _time_pair(name, variant, kernel, plain, library=None, plain_reps=20):
+    """Device ms per call of the kernel, its plain version (over
+    ``plain_reps`` calls) and the library call (None where there is none),
+    logged beside the CUDA-event medians of kernel and plain."""
+    ms = (_device_ms(kernel), _device_ms(plain, plain_reps),
           None if library is None else _device_ms(library))
-    ev = (_event_ms(kernel), _event_ms(plain))
+    ev = (_event_ms(kernel), _event_ms(plain, plain_reps))
     lib = "" if library is None else f", library call {ms[2]:.4f} ms"
     log(f"kernel {name} [{variant}]: device {ms[0]:.4f} ms, plain "
-        f"{ms[1]:.4f} ms{lib} per call (profiler, 20 calls); CUDA-event "
-        f"median {ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
+        f"{ms[1]:.4f} ms ({plain_reps} calls){lib} per call (profiler, 20 "
+        f"calls); CUDA-event median {ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
     return ms
 
 
@@ -316,7 +334,88 @@ def check_kernels():
                 lambda: CM.corr_mac_plain(hist, coeff, b),
                 (_nbytes(hist, coeff) + 2 * b * C * hp * 4,
                  8 * b * p * C * hp) if cs == C else None)
+    # K8: the packed engine's MAC at the flagship, P = 128, Fp = 1152, over
+    # the N + 1 live bins (the engine's rows are zero beyond them)
+    pp, fp, nf = TAPS // N, 1152, N + 1
+    ring, coeff = rn(pp, 2 * C, fp), rn(pp, 2 * C, fp)
+    ring[..., nf:] = 0
+    coeff[..., nf:] = 0
+    run("mac_packed", f"f32 [{pp}, {2 * C}, {fp}], {nf} lanes",
+        lambda: K.mac_packed(ring, coeff, 77, nf),
+        lambda: K.mac_packed_plain(ring, coeff, 77, nf),
+        mac_cost(ring, coeff, pp, nf, fp))
+    out["quantize_hp_tpdf"] = check_quantizer()
     return out
+
+
+def check_quantizer():
+    """K9 against its plain version, bit for bit in all six outputs, at
+    int24 and int16 limits on inputs that clip: [64, 1024] float32 (timed)
+    and float64 against the plain loop on the card, [64, 65536] float32
+    against the plain loop on the CPU (on the card the loop costs launches
+    per sample). Returns the kernel's row of ``check_kernels``."""
+    import torch
+
+    from bfir_tpu_torch.kernels import dither_kernel as DK
+
+    rng = np.random.default_rng(17)
+    row = None
+    for bits in (24, 16):
+        imin, imax = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+        for dt, t, plain_dev in ((torch.float32, 1024, DEVICE),
+                                 (torch.float64, 1024, DEVICE),
+                                 (torch.float32, 65536, "cpu")):
+            npdt = np.float32 if dt == torch.float32 else np.float64
+            byte = rng.integers(-128, 128, (C, t + 1))
+            args = [
+                rng.uniform(-1.1, 1.1, (C, t)) * (imax + 1),  # x clips
+                0.5 + (np.diff(byte, axis=1) + 1.0) / 255.0,  # dither values
+                rng.uniform(-1.5, 1.5, C), rng.uniform(-1.5, 1.5, C)]
+            args = [torch.from_numpy(a.astype(npdt)) for a in args]
+            stats = [torch.zeros(C, dtype=torch.int32),
+                     torch.zeros(C, dtype=dt), torch.zeros(C, dtype=torch.int32)]
+            x, dv, e0, e1 = (a.to(DEVICE) for a in args)
+            nof, lg, ilg = (a.to(DEVICE) for a in stats)
+
+            def kernel():
+                return DK.quantize_hp_tpdf(x, dv, e0, e1, imin, imax, nof,
+                                           lg, ilg)
+
+            def plain():
+                on = [a.to(plain_dev) for a in (x, dv, e0, e1)]
+                st = [a.to(plain_dev) for a in (nof, lg, ilg)]
+                return DK.quantize_hp_tpdf_plain(*on, imin, imax, *st)
+
+            got = [a.cpu() for a in kernel()]
+            ref = [a.cpu() for a in plain()]
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
+            variant = (f"int{bits}, {str(dt)[6:]} [{C}, {t}], plain on "
+                       f"{plain_dev}")
+            log(f"kernel quantize_hp_tpdf [{variant}]: bit-equal "
+                f"{same}, {int(got[3].sum())} clipped samples")
+            if not same or int(got[3].sum()) == 0:
+                raise SystemExit(f"chip_smoke: quantize_hp_tpdf [{variant}] "
+                                 "differs from its plain version (or did "
+                                 "not clip)")
+            if row is not None or dt != torch.float32 or t != 1024:
+                continue
+            ms, plain_ms, _ = _time_pair("quantize_hp_tpdf", variant, kernel,
+                                         plain, plain_reps=3)
+            # x and dv in, q out, the five state vectors in and out
+            nbytes = (_nbytes(x, dv) + 2 * _nbytes(e0, e1, nof, lg, ilg)
+                      + C * t * 4)
+            bound_ms, bound_by = _bound(nbytes, 10 * C * t)
+            # the serial chain: about six dependent operations of four
+            # cycles per sample at the H100's 1.755 GHz boost clock
+            chain_ms = t * 6 * 4 / 1.755e9 * 1e3
+            log(f"kernel quantize_hp_tpdf: bound {bound_ms:.5f} ms by "
+                f"{bound_by} ({nbytes / 1e6:.2f} MB); serial-chain bound "
+                f"{chain_ms:.4f} ms ({t} samples x 6 dependent ops x 4 "
+                "cycles at 1.755 GHz)")
+            row = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+    return row
 
 
 def _impulse(seed, rows):
@@ -425,11 +524,15 @@ def _kernels():
     from bfir_tpu_torch.kernels import fft_fused as FF
     from bfir_tpu_torch.kernels import spectrum_mac as K
 
+    from bfir_tpu_torch.kernels import dither_kernel as DK
+
     return {"mac_hc": K.mac_hc, "mac_hc_tiled": K.mac_hc_tiled,
             "mac_hc_tiled_int": K.mac_hc_tiled_int,
             "irfft_split_hc_tail_balanced": FF.irfft_split_hc_tail_balanced,
             "mac_hc_band": K.mac_hc_band,
-            "mac_hc_band_int": K.mac_hc_band_int, "corr_mac": CM.corr_mac}
+            "mac_hc_band_int": K.mac_hc_band_int, "corr_mac": CM.corr_mac,
+            "mac_packed": K.mac_packed,
+            "quantize_hp_tpdf": DK.quantize_hp_tpdf}
 
 
 def run_path(what, names, fn, *args):
@@ -656,10 +759,31 @@ def render_short():
     _snr_gate(_worst_snr_db(y, x, h), "render (batch)")
 
 
-def render_cli():
+def _run_cli(inp, ir, name, *flags):
     """``python -m bfir_tpu_torch.cli.render`` in a subprocess (its
     default device, CUDA), with HOME inside the work directory so its
-    artifact cache stays in the checkout."""
+    artifact cache stays in the checkout; returns the output WAV [C, T]."""
+    from bfir_tpu_torch.io import wavio
+
+    out = os.path.join(WORK, f"cli_{name}.wav")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "bfir_tpu_torch.cli.render", inp, out,
+         "--impulse", ir, *flags], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, HOME=WORK))
+    wall = time.perf_counter() - t0
+    if res.returncode:
+        raise SystemExit(f"chip_smoke: the render CLI failed "
+                         f"(exit {res.returncode}):\n{res.stderr[-3000:]}")
+    log(f"render CLI {' '.join(flags) or '(defaults)'}: "
+        f"{res.stdout.strip()}; {wall:.1f} s for the whole process (torch "
+        "import, engine builds and self-checks included)")
+    return wavio.read(out)[0].T
+
+
+def render_cli():
+    """Phase 9: the render CLI on a 2-channel WAV; then phase 11, the same
+    input with ``--delay 0,100``, float32 and then dithered 24-bit."""
     from bfir_tpu_torch.io import wavio
 
     rng = np.random.default_rng(13)
@@ -667,23 +791,204 @@ def render_cli():
     h = (rng.standard_normal((2, TAPS)) * np.exp(-t / 16384.0)
          * 0.01).astype(np.float32)
     x = (0.1 * rng.standard_normal((441000, 2))).astype(np.float32)
-    ir, inp, out = (os.path.join(WORK, f"cli_{n}.wav")
-                    for n in ("ir", "in", "out"))
+    ir, inp = (os.path.join(WORK, f"cli_{n}.wav") for n in ("ir", "in"))
     wavio.write(ir, h.T, 44100, subtype="float32")
     wavio.write(inp, x, 44100, subtype="float32")
+    y = _run_cli(inp, ir, "out")
+    _snr_gate(_worst_snr_db(y, x.T, h), "render CLI")
+
+    delays = (0, 100)
+    ref = _shifted_ref(x.T, h, delays, x.shape[0])
+    yf = _run_cli(inp, ir, "delay", "--delay", "0,100")
+    a_max = float(np.abs(yf - ref).max())
+    _snr_gate(_shifted_snr_db(yf, ref), "render CLI --delay 0,100")
+    yd = _run_cli(inp, ir, "dither", "--delay", "0,100", "--out-format",
+                  "pcm24", "--dither")
+    _dither_gate(yd, ref, a_max, "render CLI --delay 0,100 pcm24 --dither")
+
+
+def _shifted_ref(x, h, delays, length):
+    """scipy's float64 convolution of x [C, T] with the rows of h, each
+    channel delayed by its delay, cut to ``length``."""
+    from scipy import signal
+
+    ref = np.zeros((x.shape[0], length))
+    for c in range(x.shape[0]):
+        y = signal.fftconvolve(x[c].astype(np.float64),
+                               h[c].astype(np.float64))
+        d = delays[c]
+        ref[c, d:] = y[: length - d]
+    return ref
+
+
+def _shifted_snr_db(y, ref):
+    return min(10 * np.log10(float((ref[c] ** 2).sum())
+                             / max(float(((y[c] - ref[c]) ** 2).sum()),
+                                   1e-300))
+               for c in range(y.shape[0]))
+
+
+def _dither_gate(y, ref, a_max, what):
+    """Gate (b): a dithered 24-bit output y against the float64 reference:
+    max |error| within 5 LSB plus ``a_max`` (the undithered output's max
+    error), RMS error between 0.5 and 1.5 LSB. The quantizer's own error is
+    e0[t-1] - e0[t-2] - e0[t] with |e0| < 1.51 (at most 4.6 LSB), RMS about
+    1.0 LSB; rounding without dither gives 0.29 LSB."""
+    err = y - ref
+    mx = float(np.abs(err).max()) / LSB24
+    bound = 5.0 + a_max / LSB24
+    rms = float(np.sqrt(np.mean(err ** 2))) / LSB24
+    log(f"{what}: vs scipy float64: max |err| {mx:.3f} LSB (bound "
+        f"{bound:.3f}), RMS {rms:.4f} LSB (bounds 0.5-1.5) over "
+        f"{err.size} samples")
+    if not (mx <= bound and 0.5 <= rms <= 1.5):
+        raise SystemExit(f"chip_smoke: {what} fails gate (b): max {mx:.3f} "
+                         f"LSB, RMS {rms:.4f} LSB")
+
+
+def _raw_config(path, out_fmt, delays, dither):
+    from bfir_tpu_torch.core.spec import (ChainSpec, DelaySpec, EngineConfig,
+                                          FilterSpec, ImpulseFileSpec,
+                                          SampleFormat, StreamSpec)
+
+    files = (ImpulseFileSpec(enabled=True, filename=path), ImpulseFileSpec(),
+             ImpulseFileSpec())
+    return EngineConfig(
+        filter=FilterSpec(N, dtype="float32"),
+        stream=StreamSpec(n_channels=C, sample_rate=44100,
+                          in_format=SampleFormat.S24_LE,
+                          out_format=SampleFormat[out_fmt],
+                          apply_dither=dither),
+        chain=ChainSpec(files=files),
+        delay=DelaySpec(enabled=True, samples=tuple(delays)),
+        engine_mode="packed")
+
+
+def _raw_chunks(sp, raw, frames):
+    """process_raw over consecutive chunks of ``raw`` of the given frame
+    counts (S24: 3 bytes a sample); returns the output bytes of each."""
+    outs, a = [], 0
+    for f in frames:
+        outs.append(sp.process_raw(raw[a:a + 3 * C * f]))
+        a += 3 * C * f
+    return outs
+
+
+def session_e(cache):
+    """Raw PCM through process_raw at the flagship: S24 in, the packed
+    engine (K8), per-channel delays 7 c, S24 out with hp-TPDF dither (K9)."""
+    import torch
+
+    from bfir_tpu_torch.core.spec import SampleFormat
+    from bfir_tpu_torch.engine.session import StreamProcessor
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+    from bfir_tpu_torch.ops import delay as DL
+    from bfir_tpu_torch.ops import formats as fm
+
+    s24, f32 = SampleFormat.S24_LE, SampleFormat.FLOAT_LE
+    h = _impulse(14, C)
+    path = _write_wav("e.wav", h)
+    delays = [7 * c for c in range(C)]
+    rng = np.random.default_rng(15)
+    total = 96 * N + 333
+    # 0.1 RMS input: the output peak stays near 0.3 of full scale
+    xi = np.clip(np.round(0.1 * rng.standard_normal((C, total)) * 2 ** 23),
+                 -2 ** 23, 2 ** 23 - 1).astype(np.int32)
+    raw = fm.encode_int(xi, s24)
+    x = xi / 2.0 ** 23
+    chunks = [1000, 37, 20000, 4567, 9000, 17 * N + 5, 777]
+    chunks.append(total - sum(chunks))
+
+    # (a) the same config with float output: the engine's own error
+    sp_a = StreamProcessor(_raw_config(path, "FLOAT_LE", delays, False),
+                           cache, device=DEVICE)
+    ya = fm.decode(b"".join(_raw_chunks(sp_a, raw, chunks)), f32, C)
+    if sp_a._impl != "packed" or tuple(sp_a._coeffs.shape) != (
+            TAPS // N, 2 * C, N + 128):
+        raise SystemExit(f"chip_smoke: session E engine {sp_a._impl!r}")
+    ref = _shifted_ref(x, h, delays, ya.shape[1])
+    a_max = float(np.abs(ya - ref).max())
+    log(f"session E (a): packed engine, FLOAT_LE out, {ya.shape[1] // N} "
+        f"blocks, max |err| {a_max:.3e} ({a_max / LSB24:.3f} LSB24)")
+    _snr_gate(_shifted_snr_db(ya, ref), "session E (a), delays shifted")
+
+    # (b) dithered S24 out, timed by phase; the last chunk profiled
+    sp = StreamProcessor(_raw_config(path, "S24_LE", delays, True), cache,
+                         device=DEVICE)
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "bfir_tpu_torch.cli.render", inp, out,
-         "--impulse", ir], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ, HOME=WORK))
+    outs = _raw_chunks(sp, raw, chunks[:1])
+    log(f"session E (b): first process_raw() incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s")
+    sp.raw_seconds = dict.fromkeys(sp.raw_seconds, 0.0)
+    t0 = time.perf_counter()
+    outs += _raw_chunks(sp, raw[3 * C * chunks[0]:], chunks[1:-1])
     wall = time.perf_counter() - t0
-    if res.returncode:
-        raise SystemExit(f"chip_smoke: the render CLI failed "
-                         f"(exit {res.returncode}):\n{res.stderr[-3000:]}")
-    y, _ = wavio.read(out)
-    log(f"render CLI: {res.stdout.strip()}; {wall:.1f} s for the whole "
-        "process (torch import, engine builds and self-checks included)")
-    _snr_gate(_worst_snr_db(y.T, x.T, h), "render CLI")
+    n_blocks = sum(len(o) for o in outs[1:]) // (3 * C * N)
+    per = {k: v * 1e3 / n_blocks for k, v in sp.raw_seconds.items()}
+    log(f"session E (b): process_raw() {wall * 1e3 / n_blocks:.4f} ms/block "
+        f"wall over {n_blocks} blocks in {len(chunks) - 2} calls: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+        + f" ms/block (C={C}, N={N}, {TAPS} taps, packed, S24 dithered)")
+    last = raw[3 * C * sum(chunks[:-1]):]
+    outs.append(_device_busy(lambda: sp.process_raw(last),
+                             f"session E (b), {chunks[-1]} frames"))
+    yb = fm.decode(b"".join(outs), s24, C)
+    if yb.shape != ya.shape:
+        raise SystemExit(f"chip_smoke: session E (b) shape {yb.shape}")
+    _dither_gate(yb, ref, a_max, "session E (b) dithered S24")
+    n_of = int(sp.overflow_stats().n_overflows.sum())
+    if n_of:
+        raise SystemExit(f"chip_smoke: session E clipped {n_of} samples")
+
+    # (c) a live reconfigure to a second filter and reversed delays
+    h2 = _impulse(16, C)
+    delays2 = [7 * (C - 1 - c) for c in range(C)]
+    state = sp._state
+    sp.reconfigure(_raw_config(_write_wav("e2.wav", h2), "S24_LE", delays2,
+                               True))
+    if sp._pending_swap is None or sp._state.ring is not state.ring:
+        raise SystemExit("chip_smoke: session E reconfigure rebuilt")
+    x2i = np.clip(np.round(0.1 * rng.standard_normal((C, 24 * N + 100))
+                           * 2 ** 23), -2 ** 23, 2 ** 23 - 1).astype(np.int32)
+    raw2 = fm.encode_int(x2i, s24)
+    k8 = K.mac_packed.launches
+    outs2 = _raw_chunks(sp, raw2, [N])  # completes exactly one block
+    if K.mac_packed.launches - k8 != 2 or len(outs2[0]) != 3 * C * N:
+        raise SystemExit(f"chip_smoke: the crossfade block launched K8 "
+                         f"{K.mac_packed.launches - k8} times")
+    if (sp._delay_vecs[0].tolist() != delays2
+            or sp._state.ring is not state.ring):
+        raise SystemExit("chip_smoke: the new delays did not apply live")
+    outs2 += _raw_chunks(sp, raw2[3 * C * N:], [5000, 24 * N + 100 - N - 5000])
+    y2 = fm.decode(b"".join(outs2), s24, C)
+    full = np.concatenate([x, x2i / 2.0 ** 23], axis=1)
+    t_sw = yb.shape[1]
+    ref2 = _shifted_ref(full, h2, delays2, t_sw + y2.shape[1])[:, t_sw:]
+    settle = N + max(delays2)  # the crossfade block, then the old history
+    log(f"session E (c): reconfigure: crossfade block launched K8 twice, "
+        f"delays changed live; {y2.shape[1]} frames after the change, gated "
+        f"from frame {settle}")
+    _dither_gate(y2[:, settle:], ref2[:, settle:], a_max,
+                 "session E (c) after reconfigure")
+
+    # (d) the fractional delay line on the card against its CPU run
+    subs = rng.integers(-15, 16, C)
+    lines = {d: DL.FractionalDelayLine(C, max(delays), device=d)
+             for d in (DEVICE, "cpu")}
+    states = {d: line.init_state() for d, line in lines.items()}
+    worst = 0.0
+    for blk in rng.standard_normal((4, C, N)).astype(np.float32):
+        ys = {}
+        for d, line in lines.items():
+            states[d], ys[d] = line(states[d], torch.from_numpy(blk).to(d),
+                                    torch.tensor(delays), torch.tensor(subs))
+        rel = float((ys[DEVICE].cpu() - ys["cpu"]).abs().max()
+                    / ys["cpu"].abs().max())
+        worst = max(worst, rel)
+    log(f"session E (d): FractionalDelayLine on the card vs the CPU: max rel "
+        f"err {worst:.2e} (bound 1e-5)")
+    if not worst <= 1e-5:
+        raise SystemExit("chip_smoke: FractionalDelayLine differs on CUDA")
 
 
 def main():
@@ -708,6 +1013,7 @@ def main():
         ("render (split)", ("mac_hc", "mac_hc_band",
                             "irfft_split_hc_tail_balanced"), render_split),
         ("render (batch)", (), render_short),
+        ("session E", ("mac_packed", "quantize_hp_tpdf"), session_e, cache),
     ]
     total = dict.fromkeys(kernels, 0)
     for what, names, fn, *args in paths:

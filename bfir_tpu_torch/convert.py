@@ -10,8 +10,8 @@ reference's order. ``blockcounter`` is an int32 scalar in the reference
 and a host int here. bf16 planes come back to numpy as float32 (numpy has
 no bfloat16; the widening is exact).
 
-``PackedState``, ``DelayState`` and ``OverflowStats`` convert field for
-field. ``DitherState`` carries ``e0``, ``e1`` and ``prev_byte``; the
+``PackedState``, ``SplitState``, ``DoubledState``, ``DelayState`` and
+``OverflowStats`` convert field for field. ``DitherState`` carries ``e0``, ``e1`` and ``prev_byte``; the
 reference's threefry ``key`` has no counterpart, so ``*_from_numpy`` seeds
 the port's generator from ``seed`` and ``*_to_numpy`` returns
 ``generator=None`` (a reference state resumed from it takes a key of its
@@ -32,7 +32,9 @@ import numpy as np
 import torch
 
 from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuSplitState, NuState
-from bfir_tpu_torch.kernels.spectrum_mac import HcState, IntPlanes, PackedState
+from bfir_tpu_torch.kernels.spectrum_mac import (DoubledState, HcState,
+                                                 IntPlanes, PackedState,
+                                                 SplitState)
 from bfir_tpu_torch.ops.delay import DelayState
 from bfir_tpu_torch.ops.dither import (DitherState, OverflowStats,
                                        init_dither_state)
@@ -137,6 +139,33 @@ def packed_state_to_numpy(st: PackedState) -> PackedState:
     return PackedState(ring=tensor_to_numpy(st.ring),
                        prev_block=tensor_to_numpy(st.prev_block),
                        blockcounter=np.asarray(st.blockcounter, dtype=np.int32))
+
+
+def split_state_from_numpy(st, device) -> SplitState:
+    return SplitState(ring_re=tensor_from_numpy(st.ring_re, device),
+                      ring_im=tensor_from_numpy(st.ring_im, device),
+                      prev_block=tensor_from_numpy(st.prev_block, device),
+                      blockcounter=int(np.asarray(st.blockcounter)))
+
+
+def split_state_to_numpy(st: SplitState) -> SplitState:
+    return SplitState(ring_re=tensor_to_numpy(st.ring_re),
+                      ring_im=tensor_to_numpy(st.ring_im),
+                      prev_block=tensor_to_numpy(st.prev_block),
+                      blockcounter=np.asarray(st.blockcounter, dtype=np.int32))
+
+
+def doubled_state_from_numpy(st, device) -> DoubledState:
+    return DoubledState(ring2=tensor_from_numpy(st.ring2, device),
+                        prev_block=tensor_from_numpy(st.prev_block, device),
+                        blockcounter=int(np.asarray(st.blockcounter)))
+
+
+def doubled_state_to_numpy(st: DoubledState) -> DoubledState:
+    return DoubledState(ring2=tensor_to_numpy(st.ring2),
+                        prev_block=tensor_to_numpy(st.prev_block),
+                        blockcounter=np.asarray(st.blockcounter,
+                                                dtype=np.int32))
 
 
 def dither_state_from_numpy(st, device, seed: int = 1) -> DitherState:

@@ -45,6 +45,8 @@
 
 #include <cstdint>
 
+#include "mac_common.cuh"
+
 namespace {
 
 enum Kind { kF32 = 0, kBF16 = 1, kI24 = 2, kI16 = 3 };
@@ -93,12 +95,6 @@ __device__ __forceinline__ float4 load4(const Planes& pl, long long row,
   }
 }
 
-__device__ __forceinline__ void cmac(float& ar, float& ai, float cr, float ci,
-                                     float rr, float ri) {
-  ar += cr * rr - ci * ri;
-  ai += cr * ri + ci * rr;
-}
-
 template <int RK, int CK, bool kLane0>
 __global__ void __launch_bounds__(kThreads)
     mac_hc_kernel(Planes ring, Planes coeff, float* __restrict__ yr,
@@ -120,15 +116,7 @@ __global__ void __launch_bounds__(kThreads)
     const float4 ri = load4<RK>(ring, r_row + C, hp, lane);
     const float4 cr = load4<CK>(coeff, c_row, hp, lane);
     const float4 ci = load4<CK>(coeff, c_row + Cs, hp, lane);
-    if (kLane0 && lane == 0) {  // (DC.re, Nyquist.re): two real products
-      ar.x += cr.x * rr.x;
-      ai.x += ci.x * ri.x;
-    } else {
-      cmac(ar.x, ai.x, cr.x, ci.x, rr.x, ri.x);
-    }
-    cmac(ar.y, ai.y, cr.y, ci.y, rr.y, ri.y);
-    cmac(ar.z, ai.z, cr.z, ci.z, rr.z, ri.z);
-    cmac(ar.w, ai.w, cr.w, ci.w, rr.w, ri.w);
+    bfir::cmac4(ar, ai, cr, ci, rr, ri, kLane0 && lane == 0);
   }
   const long long o = static_cast<long long>(c) * band_len + k;
   *reinterpret_cast<float4*>(yr + o) = ar;

@@ -46,6 +46,15 @@ _SIGNATURES = {
     "bfir_corr_mac": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # ring, coeff, yr, yi, P, C, fp, lanes, pos, stream
     "bfir_mac_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ring2, coeff_rk, yr, yi, P, C, fp, lanes, pos, k, stream
+    "bfir_mac_chunked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ring_re, ring_im, coeff_re, coeff_im, yr, yi, P, C, fp, lanes, pos,
+    # stream
+    "bfir_mac_split": [_P] * 6 + [_I] * 5 + [_P],
+    # ring, coeff, wr, wi, out, P, C, hp, pos, stream
+    "bfir_mac_tail_hc": [_P] * 5 + [_I] * 4 + [_P],
+    # ring, coeff, xpk, yr, yi, P, C, hp, pos, stream
+    "bfir_mac_hc_insert": [_P] * 5 + [_I] * 4 + [_P],
     # x, dv, e0, e1, nof, lg, ilg, q, e0', e1', nof', lg', ilg', C, T,
     # imin, imax, is_f64, stream
     "bfir_quantize_hp_tpdf": [_P] * 13 + [_I, _I, _D, _D, _I, _P],

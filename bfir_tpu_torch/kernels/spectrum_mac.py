@@ -1,5 +1,5 @@
-"""The halfcomplex and packed engines and their ring-MAC kernels (K1-K3,
-K5, K6, K8).
+"""The uniform engines and their ring-MAC kernels (K1-K3, K5, K6, K8,
+K10-K13).
 
 Counterpart of ``bfir_tpu/kernels/spectrum_mac.py``. The ring of input
 spectra stays fixed in memory, one slot is overwritten per block, and the
@@ -10,14 +10,29 @@ MAC reads partition p from slot ``(pos - p) mod P`` (brutefir's
 The packed engine keeps split re/im planes ``[P, 2C, Fp]`` of the full
 N + 1 bins, ``Fp`` = N + 1 rounded up to 128, with no lane-0 law.
 
+The uniform-step family, one engine per layout of the same convolution:
+
+- ``step_hc`` (K1) and ``step_packed`` (K8), which the session runs;
+- ``step_split`` (K11): four separate planes ``[P, C, Fp]``;
+- ``step_chunked`` (K10): the packed ring doubled to ``[2P, 2C, Fp]``
+  (slot s mirrored at s + P) against chunk-reversed coefficients;
+- ``step_hc2`` (K13): ``step_hc`` with the ring-slot insert inside the MAC
+  kernel;
+- ``step_hc_fused`` (K12): ``step_hc`` with the MAC and the overlap-save
+  inverse in one kernel.
+
 Kernel wrappers (``mac_hc``, ``mac_hc_tiled``, ``mac_hc_tiled_int``, the
-split-tail schedule's one-band ``mac_hc_band``, ``mac_hc_band_int`` and the
-packed engine's ``mac_packed``) take
-their plain PyTorch version for CPU tensors and launch the CUDA kernel in
-``csrc/mac_hc.cu`` for CUDA tensors (or raise); each counts its launches in
-its ``launches`` attribute. ``blockcounter`` is a host int, so no step reads
-the device to pick a ring slot. Ring inserts update the ring in place: a
-state passed to a step must not be used again.
+split-tail schedule's one-band ``mac_hc_band``, ``mac_hc_band_int``, the
+packed engine's ``mac_packed``, and ``mac_chunked``, ``mac_split``,
+``mac_tail_hc``, ``mac_hc_insert``) take their plain PyTorch version for
+CPU tensors and launch the CUDA kernel in ``csrc/mac_hc.cu``,
+``csrc/mac_variants.cu`` or ``csrc/mac_tail_hc.cu`` for CUDA tensors (or
+raise); each counts its launches in its ``launches`` attribute. K10-K13
+compute in float32 on CUDA (float64 there raises ``NotImplementedError``);
+on the CPU their plain versions run in the tensors' dtype. ``blockcounter``
+is a host int, so no step reads the device to pick a ring slot. Ring
+inserts update the ring in place: a state passed to a step must not be
+used again.
 """
 
 from __future__ import annotations
@@ -140,6 +155,52 @@ def mac_packed_plain(ring_pk, coeff_pk, pos: int, n_freq: int):
                         lane0=False)
 
 
+def mac_split_plain(ring_re, ring_im, coeff_re, coeff_im, pos: int,
+                    n_freq: int):
+    """Plain version of K11: ``mac_reference`` on four planes [P, C, Fp]
+    over the first ``n_freq`` lanes rounded up to 4 -> (yr, yi) [C, that
+    many lanes]."""
+    nb = _packed_lanes(ring_re.shape[-1], n_freq)
+    return mac_reference(ring_re[..., :nb], ring_im[..., :nb],
+                         coeff_re[..., :nb], coeff_im[..., :nb], pos)
+
+
+def _check_chunk(p: int, k: int) -> None:
+    if k < 1 or p % k:
+        raise ValueError(f"chunk size {k} must divide partition count {p}")
+
+
+def mac_chunked_plain(ring2, coeff_rk, pos: int, n_freq: int, k: int = 4):
+    """Plain version of K10, reading the layouts as the kernel does: chunk
+    i, element t pairs ring2 [2P, 2C, Fp] slot ``pos + P - (i+1)k + 1 + t``
+    with row ``i k + t`` of the chunk-reversed coefficients [P, 2C, Fp]
+    (no lane-0 law) -> (yr, yi) [C, ``n_freq`` rounded up to 4]."""
+    p, c = ring2.shape[0] // 2, ring2.shape[1] // 2
+    _check_chunk(p, k)
+    nb = _packed_lanes(ring2.shape[-1], n_freq)
+    j = torch.arange(p)
+    slots = pos % p + p - (j // k + 1) * k + 1 + j % k
+    r = ring2[..., :nb].index_select(0, slots.to(ring2.device))
+    g = coeff_rk[..., :nb]
+    rr, ri, cr, ci = r[:, :c], r[:, c:], g[:, :c], g[:, c:]
+    return (cr * rr - ci * ri).sum(dim=0), (cr * ri + ci * rr).sum(dim=0)
+
+
+def mac_hc_insert_plain(ring_pk, coeff_pk, xpk, pos: int):
+    """Plain version of K13: write ``xpk`` [2C, Hp] into ring slot ``pos``
+    (in place), then ``mac_hc_plain`` -> (yr, yi, ring)."""
+    ring_pk[pos] = xpk
+    yr, yi = mac_hc_plain(ring_pk, coeff_pk, pos)
+    return yr, yi, ring_pk
+
+
+def mac_tail_hc_plain(ring_pk, coeff_pk, wr, wi, pos: int):
+    """Plain version of K12: ``mac_hc_plain``, then the tail basis product
+    ``yr @ wr + yi @ wi`` -> out [C, Hp]."""
+    yr, yi = mac_hc_plain(ring_pk, coeff_pk, pos)
+    return yr @ wr + yi @ wi
+
+
 def mac_reference_hc_int(ring: IntPlanes, coeff: IntPlanes, pos: int):
     """Plain version of K3: decode, then ``mac_reference_hc`` (f32)."""
     return mac_hc_plain(dequantize_planes(ring), dequantize_planes(coeff), pos)
@@ -194,6 +255,11 @@ def _int_plane(ip: IntPlanes, name: str, device):
             ip.hi.shape)
 
 
+def _mac_out(c: int, lanes: int, device):
+    yr = torch.empty((c, lanes), dtype=torch.float32, device=device)
+    return yr, torch.empty_like(yr)
+
+
 def _launch_mac(r, g, pos: int, device, band=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/mac_hc.cu on plane descriptors from _float_plane /
@@ -208,8 +274,7 @@ def _launch_mac(r, g, pos: int, device, band=None
     if hp % 128:
         raise ValueError(f"Hp {hp} must be a multiple of 128")
     b0, bl = band or (0, hp)
-    yr = torch.empty((c, bl), dtype=torch.float32, device=device)
-    yi = torch.empty_like(yr)
+    yr, yi = _mac_out(c, bl, device)
     lib = cuda_lib.load()
     with torch.cuda.device(device):
         err = lib.bfir_mac_hc(r_a, r_lo, r_s, r_kind, g_a, g_lo, g_s, g_kind,
@@ -334,8 +399,7 @@ def mac_packed(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
     if fp % 4:
         raise ValueError(f"Fp {fp} must be a multiple of 4")
     c, nb = c2 // 2, _packed_lanes(fp, n_freq)
-    yr = torch.empty((c, nb), dtype=torch.float32, device=dev)
-    yi = torch.empty_like(yr)
+    yr, yi = _mac_out(c, nb, dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
         err = lib.bfir_mac_packed(ring_pk.data_ptr(), coeff_pk.data_ptr(),
@@ -346,12 +410,161 @@ def mac_packed(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
     return yr, yi
 
 
+def _f32_cuda(x: torch.Tensor, name: str, device) -> None:
+    """Raise unless ``x`` is a float32 CUDA tensor that K10-K13 take; a
+    float64 one raises ``NotImplementedError``."""
+    cuda_lib.require_cuda(x, name, (torch.float32, torch.float64), device)
+    if x.dtype == torch.float64:
+        raise NotImplementedError(
+            f"{name} is float64: the kernel computes in float32; float64 on "
+            "CUDA is ROADMAP Queue 1 #4 (extended precision as float64)")
+
+
+def _same_shape(shape, expect, what: str) -> None:
+    if tuple(shape) != tuple(expect):
+        raise ValueError(f"{what} must be {list(expect)}, got {list(shape)}")
+
+
+def mac_split(ring_re: torch.Tensor, ring_im: torch.Tensor,
+              coeff_re: torch.Tensor, coeff_im: torch.Tensor, pos: int,
+              n_freq: int):
+    """K11: the split-plane ring MAC over four float32 planes [P, C, Fp]
+    (ring re/im, per-channel coefficient re/im; no lane-0 law) -> (yr, yi)
+    float32 [C, L], L = ``n_freq`` rounded up to 4 (at most Fp). Replaces
+    ``spectrum_mac.mac_pallas``."""
+    planes = {"ring_re": ring_re, "ring_im": ring_im, "coeff_re": coeff_re,
+              "coeff_im": coeff_im}
+    if ring_re.device.type == "cpu":
+        return mac_split_plain(ring_re, ring_im, coeff_re, coeff_im, pos,
+                               n_freq)
+    dev = ring_re.device
+    p, c, fp = ring_re.shape
+    for name, t in planes.items():
+        _f32_cuda(t, name, dev)
+        _same_shape(t.shape, (p, c, fp), name)
+    if fp % 4:
+        raise ValueError(f"Fp {fp} must be a multiple of 4")
+    nb = _packed_lanes(fp, n_freq)
+    yr, yi = _mac_out(c, nb, dev)
+    lib = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.bfir_mac_split(*(t.data_ptr() for t in planes.values()),
+                                 yr.data_ptr(), yi.data_ptr(), p, c, fp, nb,
+                                 pos % p, cuda_lib.stream_of(yr))
+    cuda_lib.check(err, "mac_split")
+    mac_split.launches += 1
+    return yr, yi
+
+
+def mac_chunked(ring2: torch.Tensor, coeff_rk: torch.Tensor, pos: int,
+                n_freq: int, k: int = 4):
+    """K10: the packed ring MAC over the doubled ring [2P, 2C, Fp] (slot s
+    mirrored at s + P) and chunk-reversed coefficients [P, 2C, Fp]
+    (``chunk_reverse_coeffs(..., k)``), float32 -> (yr, yi) float32
+    [C, L], L = ``n_freq`` rounded up to 4. ``k`` must divide P; it set the
+    TPU kernel's DMA granule and sets the CUDA kernel's unroll depth, not
+    the sum. Replaces ``spectrum_mac.mac_pallas_chunked``."""
+    p2, c2, fp = ring2.shape
+    _check_chunk(p2 // 2, k)
+    if ring2.device.type == "cpu":
+        return mac_chunked_plain(ring2, coeff_rk, pos, n_freq, k)
+    dev = ring2.device
+    _f32_cuda(ring2, "ring2", dev)
+    _f32_cuda(coeff_rk, "coeff_rk", dev)
+    p = p2 // 2
+    if p2 % 2 or c2 % 2:
+        raise ValueError(f"ring2 {list(ring2.shape)} must be [2P, 2C, Fp]")
+    _same_shape(coeff_rk.shape, (p, c2, fp), "coeff_rk")
+    if fp % 4:
+        raise ValueError(f"Fp {fp} must be a multiple of 4")
+    nb = _packed_lanes(fp, n_freq)
+    yr, yi = _mac_out(c2 // 2, nb, dev)
+    lib = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.bfir_mac_chunked(ring2.data_ptr(), coeff_rk.data_ptr(),
+                                   yr.data_ptr(), yi.data_ptr(), p, c2 // 2,
+                                   fp, nb, pos % p, k, cuda_lib.stream_of(yr))
+    cuda_lib.check(err, "mac_chunked")
+    mac_chunked.launches += 1
+    return yr, yi
+
+
+def _check_hc_pair(ring_pk, coeff_pk) -> None:
+    """K12 and K13 take per-channel coefficients only, as the reference's
+    BlockSpecs do (on the CPU too)."""
+    _same_shape(coeff_pk.shape, ring_pk.shape,
+                "coefficients (per channel, as the ring)")
+    if ring_pk.shape[1] % 2 or ring_pk.shape[-1] % 4:
+        raise ValueError(f"ring {list(ring_pk.shape)} must be [P, 2C, Hp] "
+                         "with Hp a multiple of 4")
+
+
+def mac_hc_insert(ring_pk: torch.Tensor, coeff_pk: torch.Tensor,
+                  xpk: torch.Tensor, pos: int):
+    """K13: the halfcomplex ring MAC (``mac_hc``) over float32 ring and
+    per-channel coefficients [P, 2C, Hp], where partition 0 multiplies the
+    new frame spectrum ``xpk`` [2C, Hp] and the kernel writes ``xpk`` into
+    ring slot ``pos`` in place -> (yr, yi, ring). Replaces
+    ``spectrum_mac.mac_pallas_hc_insert``."""
+    _check_hc_pair(ring_pk, coeff_pk)
+    if ring_pk.device.type == "cpu":
+        return mac_hc_insert_plain(ring_pk, coeff_pk, xpk, pos)
+    dev = ring_pk.device
+    for name, t in (("ring", ring_pk), ("coeff", coeff_pk), ("xpk", xpk)):
+        _f32_cuda(t, name, dev)
+    p, c2, hp = ring_pk.shape
+    _same_shape(xpk.shape, (c2, hp), "xpk")
+    yr, yi = _mac_out(c2 // 2, hp, dev)
+    lib = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.bfir_mac_hc_insert(ring_pk.data_ptr(), coeff_pk.data_ptr(),
+                                     xpk.data_ptr(), yr.data_ptr(),
+                                     yi.data_ptr(), p, c2 // 2, hp, pos % p,
+                                     cuda_lib.stream_of(yr))
+    cuda_lib.check(err, "mac_hc_insert")
+    mac_hc_insert.launches += 1
+    return yr, yi, ring_pk
+
+
+def mac_tail_hc(ring_pk: torch.Tensor, coeff_pk: torch.Tensor,
+                wr: torch.Tensor, wi: torch.Tensor, pos: int):
+    """K12: the halfcomplex ring MAC over float32 ring and per-channel
+    coefficients [P, 2C, Hp] followed, in the same kernel, by the tail
+    product ``acc_r @ wr + acc_i @ wi`` against the half-DFT basis
+    [Hp, Hp] (``_tail_basis``) -> out float32 [C, Hp], the time-domain
+    overlap-save tail. Replaces ``spectrum_mac.mac_tail_pallas_hc``."""
+    _check_hc_pair(ring_pk, coeff_pk)
+    if ring_pk.device.type == "cpu":
+        return mac_tail_hc_plain(ring_pk, coeff_pk, wr, wi, pos)
+    dev = ring_pk.device
+    for name, t in (("ring", ring_pk), ("coeff", coeff_pk), ("wr", wr),
+                    ("wi", wi)):
+        _f32_cuda(t, name, dev)
+    p, c2, hp = ring_pk.shape
+    _same_shape(wr.shape, (hp, hp), "wr")
+    _same_shape(wi.shape, (hp, hp), "wi")
+    out = torch.empty((c2 // 2, hp), dtype=torch.float32, device=dev)
+    lib = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.bfir_mac_tail_hc(ring_pk.data_ptr(), coeff_pk.data_ptr(),
+                                   wr.data_ptr(), wi.data_ptr(),
+                                   out.data_ptr(), p, c2 // 2, hp, pos % p,
+                                   cuda_lib.stream_of(out))
+    cuda_lib.check(err, "mac_tail_hc")
+    mac_tail_hc.launches += 1
+    return out
+
+
 mac_hc.launches = 0
 mac_hc_tiled.launches = 0
 mac_hc_tiled_int.launches = 0
 mac_hc_band.launches = 0
 mac_hc_band_int.launches = 0
 mac_packed.launches = 0
+mac_split.launches = 0
+mac_chunked.launches = 0
+mac_hc_insert.launches = 0
+mac_tail_hc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -471,8 +684,47 @@ def step_hc_crossfade(state: HcState, coeff_old: torch.Tensor,
     return HcState(state.ring, prev, state.blockcounter + 1), out
 
 
+def step_hc2(state: HcState, coeff_pk: torch.Tensor,
+             block: torch.Tensor) -> Tuple[HcState, torch.Tensor]:
+    """``step_hc`` with the ring-slot insert inside the MAC kernel (K13):
+    the same outputs and ring, one copy launch fewer per block."""
+    p, _, hp = state.ring.shape
+    n = block.shape[-1]
+    prev, xpk = _hc_frame_spectrum(state, block, hp)
+    pos = state.blockcounter % p
+    yr, yi, ring = mac_hc_insert(state.ring, coeff_pk, xpk, pos)
+    out = F.irfft_hc_tail(yr.to(prev.dtype), yi.to(prev.dtype), n=2 * n)
+    return HcState(ring, prev, state.blockcounter + 1), out
+
+
+@functools.lru_cache(maxsize=8)
+def _tail_basis(n: int, hp: int, dtype: torch.dtype, device: torch.device):
+    """The half-DFT tail basis of blocks of ``n`` (``F._hc_tail_weights``),
+    zero-padded to [hp, hp], as ``dtype`` tensors on ``device``."""
+    wr, wi = F._hc_tail_weights(2 * n, str(dtype).split(".")[-1])
+    pad = ((0, hp - n), (0, hp - n))
+    return (torch.from_numpy(np.pad(wr, pad)).to(device),
+            torch.from_numpy(np.pad(wi, pad)).to(device))
+
+
+def step_hc_fused(state: HcState, coeff_pk: torch.Tensor,
+                  block: torch.Tensor) -> Tuple[HcState, torch.Tensor]:
+    """One streaming block with the partition MAC and the overlap-save
+    inverse in one kernel (K12): frame rfft, ring-slot insert (in place),
+    K12. Outputs match ``step_hc``."""
+    p, _, hp = state.ring.shape
+    n = block.shape[-1]
+    prev, xpk = _hc_frame_spectrum(state, block, hp)
+    pos = state.blockcounter % p
+    state.ring[pos] = xpk
+    wr, wi = _tail_basis(n, hp, state.ring.dtype, state.ring.device)
+    out = mac_tail_hc(state.ring, coeff_pk, wr, wi, pos)
+    return (HcState(state.ring, prev, state.blockcounter + 1),
+            out[..., :n].to(prev.dtype))
+
+
 # ---------------------------------------------------------------------------
-# The packed streaming engine (full-width split planes, K8)
+# The packed streaming engines (full-width split planes: K8, K10, K11)
 # ---------------------------------------------------------------------------
 
 
@@ -531,29 +783,41 @@ def pack_coeffs(impulse, spec: FilterSpec, n_channels: int,
     return torch.cat([cr, ci], dim=1)
 
 
-def _packed_advance(state: PackedState, block: torch.Tensor):
-    """Frame [prev | block], its spectrum written into ring slot
-    ``blockcounter % P`` in place. Returns (new prev_block, pos); the new
-    prev_block is a view of the frame."""
-    p, _, fp = state.ring.shape
+def _packed_frame_spectrum(prev_block: torch.Tensor, block: torch.Tensor,
+                           fp: int):
+    """rfft of the overlap-save frame [prev | block], split planes stacked
+    to [2C, Fp]. Returns (new prev_block, spectrum); the new prev_block is
+    a view of the frame."""
     n = block.shape[-1]
-    frame = torch.cat([state.prev_block, block.to(state.prev_block.dtype)],
-                      dim=-1)
+    frame = torch.cat([prev_block, block.to(prev_block.dtype)], dim=-1)
     xr, xi = F.rfft_split(frame)
     pad = fp - (n + 1)
+    return frame[:, n:], torch.cat([torch.nn.functional.pad(xr, (0, pad)),
+                                    torch.nn.functional.pad(xi, (0, pad))],
+                                   dim=0)
+
+
+def _packed_advance(state: PackedState, block: torch.Tensor):
+    """The frame's spectrum written into ring slot ``blockcounter % P`` in
+    place. Returns (new prev_block, pos)."""
+    p, _, fp = state.ring.shape
+    prev, xpk = _packed_frame_spectrum(state.prev_block, block, fp)
     pos = state.blockcounter % p
-    state.ring[pos] = torch.cat([torch.nn.functional.pad(xr, (0, pad)),
-                                 torch.nn.functional.pad(xi, (0, pad))], dim=0)
-    return frame[:, n:], pos
+    state.ring[pos] = xpk
+    return prev, pos
+
+
+def _split_tail(yr, yi, n: int, dtype) -> torch.Tensor:
+    """The overlap-save tail of the inverse of the N + 1 bins of (yr, yi)."""
+    f = n + 1
+    return F.irfft_split(yr[..., :f].to(dtype), yi[..., :f].to(dtype),
+                         n=2 * n)[..., n:]
 
 
 def _packed_mac_tail(ring, coeff_pk, pos: int, n: int, dtype) -> torch.Tensor:
     """K8 over the N + 1 live bins, then the overlap-save tail of the
     inverse."""
-    f = n + 1
-    yr, yi = mac_packed(ring, coeff_pk, pos, f)
-    return F.irfft_split(yr[..., :f].to(dtype), yi[..., :f].to(dtype),
-                         n=2 * n)[..., n:]
+    return _split_tail(*mac_packed(ring, coeff_pk, pos, n + 1), n, dtype)
 
 
 def step_packed(state: PackedState, coeff_pk: torch.Tensor,
@@ -579,3 +843,93 @@ def step_packed_crossfade(state: PackedState, coeff_old: torch.Tensor,
     ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
     out = out_old * (1.0 - ramp) + out_new * ramp
     return PackedState(state.ring, prev, state.blockcounter + 1), out
+
+
+class DoubledState(NamedTuple):
+    """Packed state with the ring doubled: ring2 [2P, 2C, Fp], slot s
+    mirrored at s + P, so that K10 reads any run of delayed slots without
+    a wrap; prev_block [C, N], blockcounter a host int."""
+
+    ring2: torch.Tensor
+    prev_block: torch.Tensor
+    blockcounter: int
+
+
+def init_doubled_state(spec: FilterSpec, n_channels: int, *,
+                       device) -> DoubledState:
+    st = init_packed_state(spec, n_channels, device=device)
+    return DoubledState(ring2=st.ring.repeat(2, 1, 1),
+                        prev_block=st.prev_block, blockcounter=0)
+
+
+def chunk_reverse_coeffs(coeff_pk: torch.Tensor, k: int) -> torch.Tensor:
+    """Packed coefficients [P, 2C, Fp] with the partition order reversed
+    inside each chunk of ``k`` (the layout K10 reads; ``k`` divides P)."""
+    p, c2, fp = coeff_pk.shape
+    _check_chunk(p, k)
+    return coeff_pk.reshape(p // k, k, c2, fp).flip(1).reshape(p, c2, fp)
+
+
+def step_chunked(state: DoubledState, coeff_rk: torch.Tensor,
+                 block: torch.Tensor,
+                 k: int = 4) -> Tuple[DoubledState, torch.Tensor]:
+    """One streaming block on the doubled ring (coefficients from
+    ``chunk_reverse_coeffs(pack_coeffs(...), k)``): frame rfft, the slot
+    written at pos and at pos + P (one copy, in place), K10 over the N + 1
+    live bins, overlap-save tail. Outputs match ``step_packed``."""
+    p2, _, fp = state.ring2.shape
+    p = p2 // 2
+    n = block.shape[-1]
+    prev, xpk = _packed_frame_spectrum(state.prev_block, block, fp)
+    pos = state.blockcounter % p
+    state.ring2[pos::p] = xpk  # slots pos and pos + P
+    out = _split_tail(*mac_chunked(state.ring2, coeff_rk, pos, n + 1, k), n,
+                      prev.dtype)
+    return DoubledState(state.ring2, prev, state.blockcounter + 1), out
+
+
+class SplitState(NamedTuple):
+    """Streaming state in four-plane form: ring_re and ring_im [P, C, Fp],
+    prev_block [C, N], blockcounter a host int."""
+
+    ring_re: torch.Tensor
+    ring_im: torch.Tensor
+    prev_block: torch.Tensor
+    blockcounter: int
+
+
+def init_split_state(spec: FilterSpec, n_channels: int, *,
+                     device) -> SplitState:
+    fp = _round_up(spec.n_freq, 128)
+    dt = getattr(torch, spec.dtype)
+    shape = (spec.n_partitions, n_channels, fp)
+    return SplitState(
+        ring_re=torch.zeros(shape, dtype=dt, device=device),
+        ring_im=torch.zeros(shape, dtype=dt, device=device),
+        prev_block=torch.zeros((n_channels, spec.block_length), dtype=dt,
+                               device=device),
+        blockcounter=0,
+    )
+
+
+def step_split(state: SplitState, coeff_re: torch.Tensor,
+               coeff_im: torch.Tensor,
+               block: torch.Tensor) -> Tuple[SplitState, torch.Tensor]:
+    """One streaming block on four planes (coefficients from
+    ``split_coeffs``): frame rfft, ring inserts (in place), K11 over the
+    N + 1 live bins, overlap-save tail. Shared coefficients [P, 1, Fp] are
+    materialised per channel, as the reference does: K11 reads contiguous
+    per-channel planes."""
+    p, c, fp = state.ring_re.shape
+    n = block.shape[-1]
+    if coeff_re.shape[1] != c:
+        coeff_re = coeff_re.expand(p, c, fp).contiguous()
+        coeff_im = coeff_im.expand(p, c, fp).contiguous()
+    prev, xpk = _packed_frame_spectrum(state.prev_block, block, fp)
+    pos = state.blockcounter % p
+    state.ring_re[pos] = xpk[:c]
+    state.ring_im[pos] = xpk[c:]
+    out = _split_tail(*mac_split(state.ring_re, state.ring_im, coeff_re,
+                                 coeff_im, pos, n + 1), n, prev.dtype)
+    return (SplitState(state.ring_re, state.ring_im, prev,
+                       state.blockcounter + 1), out)

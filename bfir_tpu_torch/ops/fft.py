@@ -11,12 +11,17 @@ layout contract is kept:
 - halfcomplex planes: ``(hr, hi)``, each ``[..., n//2]``, with lane 0 of
   ``hi`` holding the Nyquist bin's real part (X[0] and X[n/2] are real for
   real input, so both fit in lane 0).
+
+The reference's half-DFT tail basis (``_hc_tail_weights``) is kept for
+the one kernel that multiplies by it, K12 (``step_hc_fused``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -74,6 +79,28 @@ def irfft_hc_tail(hr: torch.Tensor, hi: torch.Tensor,
     accepted."""
     m = n or 2 * hr.shape[-1]
     return irfft_split_hc(hr, hi, m)[..., m // 2:]
+
+
+@functools.lru_cache(maxsize=16)
+def _hc_tail_weights(m: int, dtype: str):
+    """Direct half-DFT basis, numpy [h, h] each (h = m/2), computed in
+    float64 and cast once to ``dtype``: row k of (wr, wi) is the
+    contribution of (hr[k], hi[k]) to the irfft(m) tail samples [h, m);
+    lane 0 carries (DC, Nyquist):
+
+      x[t] = (1/m) [ X0 + Xny (-1)^t
+                     + 2 sum_{k=1}^{h-1} (hr_k cos(2pi k t/m)
+                                          - hi_k sin(2pi k t/m)) ]
+    """
+    h = m // 2
+    t = np.arange(h, m)[None, :]
+    k = np.arange(h)[:, None]
+    ang = 2.0 * np.pi * k * t / m
+    wr = (2.0 / m) * np.cos(ang)
+    wr[0, :] = 1.0 / m  # DC row (no doubling)
+    wi = -(2.0 / m) * np.sin(ang)
+    wi[0, :] = ((-1.0) ** t[0]) / m  # Nyquist rides lane 0 of the im plane
+    return wr.astype(dtype), wi.astype(dtype)
 
 
 def rfft_hc_staged_eligible(m: int) -> bool:

@@ -11,7 +11,7 @@ Phases (any failure exits non-zero before the last line is printed):
 1. preflight: the card's name and power limit; refuses to run without CUDA;
 2. build: compiles the kernels from ``bfir_tpu_torch/csrc`` (one nvcc per
    source, side by side);
-3. kernels: each of K1-K9 against its plain PyTorch version on the card,
+3. kernels: each of K1-K13 against its plain PyTorch version on the card,
    at the shapes its path gives it (64 channels, N = 1024, M = 8192, G = 8,
    the packed ring [128, 128, 1152] over its 1025 live lanes, the
    requantizer [64, 1024]), with the
@@ -42,15 +42,27 @@ Phases (any failure exits non-zero before the last line is printed):
     live reconfigure with new delays (a K8 crossfade, no rebuild), (d)
     ``FractionalDelayLine`` on the card against its CPU run; ms per block by
     phase (decode, engine, output stage, encode) and the device-busy share;
-11. the render CLI again with ``--delay 0,100``, float32 and then
+11. session F: 160 blocks of seeded noise through ``step_split`` (K11),
+    ``step_chunked`` with k = 4 (K10), ``step_hc2`` (K13) and
+    ``step_hc_fused`` (K12), with ``step_hc`` (K1) beside them: SNR,
+    the max difference from ``step_hc``, ms/block, kernels and copies per
+    block and the device-busy share; the rings of ``step_hc2`` and
+    ``step_hc_fused`` equal ``step_hc``'s bit for bit;
+12. the render CLI again with ``--delay 0,100``, float32 and then
     ``--out-format pcm24 --dither``: gate (b) on the dithered WAV.
 
-The launch counters are zeroed just before each path (sessions A-E, the
+Phase 3 also checks K10-K13 at the flagship: K10 (k = 1, 4, 32) and K11
+on the packed ring and coefficients of K8's check, K12 and K13 on hc
+planes [128, 128, 1024] (K12 also with a zero-padded basis and at
+Hp = 2048, untimed; K13's ring bit for bit).
+
+The launch counters are zeroed just before each path (sessions A-F, the
 two renders) and read just after it; each path must have launched its
 kernels. The last two lines are a JSON object describing the kernels and
 the ``{"ok": true, ...}`` result.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -91,6 +103,14 @@ KERNEL_SOURCES = {
                    "bfir_tpu/kernels/spectrum_mac.py:45"),
     "quantize_hp_tpdf": ("bfir_tpu_torch/csrc/dither_q.cu",
                          "bfir_tpu/kernels/dither_kernel.py:25"),
+    "mac_chunked": ("bfir_tpu_torch/csrc/mac_variants.cu",
+                    "bfir_tpu/kernels/spectrum_mac.py:113"),
+    "mac_split": ("bfir_tpu_torch/csrc/mac_variants.cu",
+                  "bfir_tpu/kernels/spectrum_mac.py:211"),
+    "mac_tail_hc": ("bfir_tpu_torch/csrc/mac_tail_hc.cu",
+                    "bfir_tpu/kernels/spectrum_mac.py:1016"),
+    "mac_hc_insert": ("bfir_tpu_torch/csrc/mac_variants.cu",
+                      "bfir_tpu/kernels/spectrum_mac.py:1101"),
 }
 
 
@@ -345,7 +365,69 @@ def check_kernels():
         lambda: K.mac_packed_plain(ring, coeff, 77, nf),
         mac_cost(ring, coeff, pp, nf, fp))
     out["quantize_hp_tpdf"] = check_quantizer()
+    check_uniform_macs(run, mac_cost, ring, coeff)
     return out
+
+
+def check_uniform_macs(run, mac_cost, ring, coeff):
+    """K10-K13 at the flagship (P = 128): K10 and K11 on the packed ring
+    and coefficients of K8's check, over the 1025 live bins (the doubled
+    ring mirrors slot s at s + P); K12 and K13 on hc planes [128, 128,
+    1024] with per-channel coefficients. K10's unrolled chunk sizes 1 and
+    4 and its loop (k = 32), K12 with a zero-padded basis (blocks of 64,
+    Hp = 128) and at Hp = 2048 (two passes of its 1024 lanes) are checked
+    untimed. K13's ring must equal its plain version's bit for bit."""
+    import torch
+
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(8)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    pp, fp = ring.shape[0], ring.shape[-1]
+    nf = N + 1
+    ring2 = torch.cat([ring, ring])
+    for k in (1, 4, 32):
+        crk = K.chunk_reverse_coeffs(coeff, k)
+        run("mac_chunked", f"f32 ring2 [{2 * pp}, {2 * C}, {fp}], k {k}, "
+            f"{nf} lanes",
+            lambda: K.mac_chunked(ring2, crk, 77, nf, k),
+            lambda: K.mac_chunked_plain(ring2, crk, 77, nf, k),
+            mac_cost(ring, crk, pp, nf, fp) if k == 4 else None)
+    planes = [t.contiguous() for t in (ring[:, :C], ring[:, C:],
+                                       coeff[:, :C], coeff[:, C:])]
+    run("mac_split", f"f32 4 x [{pp}, {C}, {fp}], {nf} lanes",
+        lambda: K.mac_split(*planes, 77, nf),
+        lambda: K.mac_split_plain(*planes, 77, nf),
+        mac_cost(tuple(planes[:2]), tuple(planes[2:]), pp, nf, fp))
+    del ring2, planes
+
+    hp = N  # hc lanes at the flagship: n_fft / 2
+    ring, coeff, xpk = rn(pp, 2 * C, hp), rn(pp, 2 * C, hp), rn(2 * C, hp)
+    rk, rp = ring.clone(), ring.clone()
+    nbytes = (_nbytes(ring) * (pp - 1) // pp + _nbytes(coeff)
+              + 2 * _nbytes(xpk) + 2 * C * hp * 4)
+    run("mac_hc_insert", f"f32 [{pp}, {2 * C}, {hp}], slot 5",
+        lambda: K.mac_hc_insert(rk, coeff, xpk, 5),
+        lambda: K.mac_hc_insert_plain(rp, coeff, xpk, 5),
+        (nbytes, 8 * pp * C * hp))
+    if not (torch.equal(rk, rp) and torch.equal(rk[5], xpk)):
+        raise SystemExit("chip_smoke: mac_hc_insert's ring differs from its "
+                         "plain version's")
+    log("kernel mac_hc_insert: the ring equals the plain version's bit for "
+        "bit, slot 5 holds xpk")
+    del rk, rp
+    for n, p, h in ((N, pp, hp), (64, 8, 128), (2048, 4, 2048)):
+        r, g = (ring, coeff) if h == hp else (rn(p, 2 * C, h), rn(p, 2 * C, h))
+        wr, wi = K._tail_basis(n, h, torch.float32, dev)
+        run("mac_tail_hc", f"f32 [{p}, {2 * C}, {h}], blocks of {n}",
+            lambda: K.mac_tail_hc(r, g, wr, wi, 9),
+            lambda: K.mac_tail_hc_plain(r, g, wr, wi, 9),
+            (_nbytes(r, g, wr, wi) + C * h * 4,
+             8 * p * C * h + 4 * C * h * h) if h == hp else None)
 
 
 def check_quantizer():
@@ -491,10 +573,12 @@ def _timed_blocks(sp, x, what):
     return ms, outs
 
 
-def _device_busy(fn, what):
+def _device_busy(fn, what, counts=None):
     """One profiled call of fn: logs its wall ms, the device-busy ms (the
-    GPU work it ran, kernels and copies, summed) and the largest device
-    items by name; returns fn's result."""
+    GPU work it ran, kernels and copies, summed), how many kernels and
+    copies (memcpy, memset) ran, and the largest device items by name;
+    returns fn's result. ``counts``, a dict, receives "busy_ms",
+    "wall_ms", "kernels" and "copies"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -506,15 +590,24 @@ def _device_busy(fn, what):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    n_kernels = n_copies = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             key = e.name[:48]
             by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+            if e.name.startswith(("Memcpy", "Memset")):
+                n_copies += 1
+            else:
+                n_kernels += 1
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"{what}: profiled call: device busy {busy:.3f} of {wall:.3f} ms "
-        f"wall ({100 * busy / wall:.1f}%); largest device items (ms): "
+        f"wall ({100 * busy / wall:.1f}%), {n_kernels} kernels and "
+        f"{n_copies} copies; largest device items (ms): "
         + "; ".join(f"{k} {v / 1e3:.3f}" for k, v in top))
+    if counts is not None:
+        counts.update(busy_ms=busy, wall_ms=wall, kernels=n_kernels,
+                      copies=n_copies)
     return y
 
 
@@ -532,7 +625,9 @@ def _kernels():
             "mac_hc_band": K.mac_hc_band,
             "mac_hc_band_int": K.mac_hc_band_int, "corr_mac": CM.corr_mac,
             "mac_packed": K.mac_packed,
-            "quantize_hp_tpdf": DK.quantize_hp_tpdf}
+            "quantize_hp_tpdf": DK.quantize_hp_tpdf,
+            "mac_chunked": K.mac_chunked, "mac_split": K.mac_split,
+            "mac_tail_hc": K.mac_tail_hc, "mac_hc_insert": K.mac_hc_insert}
 
 
 def run_path(what, names, fn, *args):
@@ -991,6 +1086,104 @@ def session_e(cache):
         raise SystemExit("chip_smoke: FractionalDelayLine differs on CUDA")
 
 
+def session_f():
+    """The uniform-step family at the flagship, step_hc beside the four
+    steps this port adds: 160 blocks of seeded noise (past P = 128, so the
+    rings and the doubled ring's mirror wrap) through each step on the
+    card, the input already there and the outputs left there. Per step:
+    the worst-channel SNR against scipy float64, the max difference from
+    step_hc's output, a profile of blocks 144-159 (device busy ms, kernels
+    and copies per block), and the wall ms per block: over blocks 8-143,
+    then over 32 more blocks of each stream in each of 8 rounds that take
+    the steps in turn, in forward and reverse order alternately (the host
+    clock drifts within a run); the rounds give a median and a range.
+    step_hc2's and step_hc_fused's rings must equal step_hc's bit for bit
+    after the 160 blocks."""
+    import torch
+
+    from bfir_tpu_torch.core.spec import FilterSpec
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+
+    dev = torch.device(DEVICE)
+    spec = FilterSpec(N, n_partitions=TAPS // N, dtype="float32")
+    blocks, warm, prof, rounds, again = 160, 8, 16, 8, 32
+    h = _impulse(18, C)
+    x = np.random.default_rng(19).standard_normal((C, blocks * N)).astype(
+        np.float32)
+    ref = _shifted_ref(x, h, [0] * C, x.shape[1])
+    xd = torch.from_numpy(x).to(dev)
+    hc = K.hc_coeffs(h, spec, C, device=dev)
+    pk = K.pack_coeffs(h, spec, C, device=dev)
+    split = K.split_coeffs(h, spec, device=dev)
+    hc_state = functools.partial(K.init_hc_state, spec, C, device=dev)
+    engines = {
+        "step_hc": (K.step_hc, hc_state, (hc,), {}),
+        "step_split": (K.step_split, functools.partial(
+            K.init_split_state, spec, C, device=dev), split, {}),
+        "step_chunked": (K.step_chunked, functools.partial(
+            K.init_doubled_state, spec, C, device=dev),
+            (K.chunk_reverse_coeffs(pk, 4),), {"k": 4}),
+        "step_hc2": (K.step_hc2, hc_state, (hc,), {}),
+        "step_hc_fused": (K.step_hc_fused, hc_state, (hc,), {}),
+    }
+    del pk
+    states, walls, y_hc = {}, {}, None
+
+    def run_blocks(name, a, b, outs=None):
+        """Blocks a..b-1 of x through engine ``name``, continuing its
+        stream; returns the wall ms per block (synchronised)."""
+        step, _, co, kw = engines[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(a, b):
+            states[name], y = step(states[name], *co,
+                                   xd[:, i * N:(i + 1) * N], **kw)
+            if outs is not None:
+                outs.append(y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (b - a)
+
+    for name, (_, init, _, _) in engines.items():
+        states[name], outs = init(), []
+        run_blocks(name, 0, warm, outs)
+        walls[name] = [run_blocks(name, warm, blocks - prof, outs)]
+        counts = {}
+        _device_busy(lambda: run_blocks(name, blocks - prof, blocks, outs),
+                     f"session F {name}, blocks {blocks - prof}-"
+                     f"{blocks - 1}", counts)
+        y = torch.cat(outs, dim=1)
+        if name == "step_hc":
+            y_hc = y
+        diff = float((y - y_hc).abs().max() / y_hc.abs().max())
+        yn = y.cpu().numpy()
+        if yn.shape != x.shape or not np.isfinite(yn).all():
+            raise SystemExit(f"chip_smoke: session F {name} gave "
+                             f"{yn.shape} or non-finite values")
+        dev_ms = counts["busy_ms"] / prof
+        log(f"session F {name}: {walls[name][0]:.4f} ms/block wall (blocks "
+            f"{warm}-{blocks - prof - 1}, C={C}, N={N}, {TAPS} taps), "
+            f"{counts['kernels'] / prof:.2f} kernels and "
+            f"{counts['copies'] / prof:.2f} copies per block, device "
+            f"{dev_ms:.4f} ms/block = {100 * dev_ms / walls[name][0]:.1f}% of "
+            f"that wall; max |y - step_hc| / max|step_hc| {diff:.3e}")
+        _snr_gate(_shifted_snr_db(yn, ref), f"session F {name}")
+        del outs, y
+    for name in ("step_hc2", "step_hc_fused"):
+        if not torch.equal(states[name].ring, states["step_hc"].ring):
+            raise SystemExit(f"chip_smoke: session F {name}'s ring differs "
+                             "from step_hc's")
+    log("session F: step_hc2's and step_hc_fused's rings equal step_hc's "
+        "bit for bit after 160 blocks")
+    order = list(engines)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            walls[name].append(run_blocks(name, 0, again))
+    log(f"session F: ms/block wall over {rounds} rounds of {again} blocks "
+        "per step (median, min-max): " + "; ".join(
+            f"{name} {np.median(w[1:]):.4f} ({min(w[1:]):.4f}-"
+            f"{max(w[1:]):.4f})" for name, w in walls.items()))
+
+
 def main():
     preflight()
     from bfir_tpu_torch.engine.cache import ArtifactCache
@@ -1014,6 +1207,8 @@ def main():
                             "irfft_split_hc_tail_balanced"), render_split),
         ("render (batch)", (), render_short),
         ("session E", ("mac_packed", "quantize_hp_tpdf"), session_e, cache),
+        ("session F", ("mac_hc", "mac_split", "mac_chunked", "mac_hc_insert",
+                       "mac_tail_hc"), session_f),
     ]
     total = dict.fromkeys(kernels, 0)
     for what, names, fn, *args in paths:

@@ -1,4 +1,4 @@
-"""bfir_tpu_torch kernels K1-K7: each wrapper on CPU tensors (its plain
+"""bfir_tpu_torch kernels K1-K7 and K10-K13: each wrapper on CPU tensors (its plain
 PyTorch version) against the bfir_tpu Pallas kernel in interpret mode, on
 the same numpy inputs.
 
@@ -236,6 +236,129 @@ def test_irfft_tail_balanced_matches_pallas():
     assert FF.irfft_split_hc_tail_balanced.launches == 0
 
 
+# K10-K13 shapes: P = 8 partitions, C = 4 channels
+P8, C4 = 8, 4
+
+
+def _planes8(seed, lanes):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((P8, 2 * C4, lanes)).astype(np.float32),
+            rng.standard_normal((P8, 2 * C4, lanes)).astype(np.float32),
+            rng.standard_normal((2 * C4, lanes)).astype(np.float32))
+
+
+@pytest.mark.parametrize("lanes", [128, 256])
+@pytest.mark.parametrize("pos", [0, 3, 7])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_mac_chunked_matches_pallas(k, pos, lanes):
+    """K10 over a doubled ring (slot s mirrored at s + P) and
+    chunk-reversed coefficients; the same sum as K8 on the single ring."""
+    ring, coeff, _ = _planes8(20, lanes)
+    ring2 = np.concatenate([ring, ring])
+    crj = JK.chunk_reverse_coeffs(jnp.asarray(coeff), k)
+    jr, ji = JK.mac_pallas_chunked(jnp.asarray(ring2), crj, jnp.int32(pos),
+                                   k=k, interpret=True)
+    crt = K.chunk_reverse_coeffs(torch.from_numpy(coeff), k)
+    np.testing.assert_array_equal(crt.numpy(), np.asarray(crj))
+    tr, ti = K.mac_chunked(torch.from_numpy(ring2), crt, pos, lanes, k)
+    assert tuple(tr.shape) == (C4, lanes)
+    _close(tr, jr)
+    _close(ti, ji)
+    pr, pi = K.mac_packed_plain(torch.from_numpy(ring),
+                                torch.from_numpy(coeff), pos, lanes)
+    _close(tr, pr)
+    _close(ti, pi)
+    assert K.mac_chunked.launches == 0
+
+
+@pytest.mark.parametrize("lanes", [128, 256])
+@pytest.mark.parametrize("pos", [0, 3, 7])
+def test_mac_split_matches_pallas(pos, lanes):
+    """K11 over four planes [P, C, Fp]; the live-lane count rounds up to
+    4 as K8's does."""
+    rng = np.random.default_rng(21)
+    planes = [rng.standard_normal((P8, C4, lanes)).astype(np.float32)
+              for _ in range(4)]
+    jr, ji = JK.mac_pallas(*map(jnp.asarray, planes), jnp.int32(pos),
+                           interpret=True)
+    tp = [torch.from_numpy(a) for a in planes]
+    tr, ti = K.mac_split(*tp, pos, lanes)
+    _close(tr, jr)
+    _close(ti, ji)
+    lr, li = K.mac_split(*tp, pos, lanes // 2 + 1)
+    assert tuple(lr.shape) == (C4, lanes // 2 + 4)
+    _close(lr, np.asarray(jr)[:, :lanes // 2 + 4])
+    assert K.mac_split.launches == 0
+
+
+@pytest.mark.parametrize("lanes", [128, 256])
+@pytest.mark.parametrize("pos", [0, 3, 7])
+def test_mac_hc_insert_matches_pallas(pos, lanes):
+    """K13: partition 0 is the new spectrum, which lands in slot pos of
+    the ring (in place); the other slots stay as they were."""
+    ring, coeff, xpk = _planes8(22, lanes)
+    jr, ji, jring = JK.mac_pallas_hc_insert(
+        jnp.asarray(ring.copy()), jnp.asarray(coeff), jnp.asarray(xpk),
+        jnp.int32(pos), interpret=True)
+    tring = torch.from_numpy(ring.copy())
+    tr, ti, tring2 = K.mac_hc_insert(tring, torch.from_numpy(coeff),
+                                     torch.from_numpy(xpk), pos)
+    assert tring2 is tring
+    _close(tr, jr)
+    _close(ti, ji)
+    want = ring.copy()
+    want[pos] = xpk
+    np.testing.assert_array_equal(tring.numpy(), np.asarray(jring))
+    np.testing.assert_array_equal(tring.numpy(), want)
+    assert K.mac_hc_insert.launches == 0
+    with pytest.raises(ValueError, match="per channel"):
+        K.mac_hc_insert(tring, torch.from_numpy(coeff[:, :2]),
+                        torch.from_numpy(xpk), pos)
+
+
+@pytest.mark.parametrize("lanes", [128, 256])
+@pytest.mark.parametrize("pos", [0, 3, 7])
+def test_mac_tail_hc_matches_pallas(pos, lanes):
+    """K12: the hc MAC and the tail product against the half-DFT basis;
+    at 128 lanes for blocks of 64 (the basis zero-padded, Hp > h), at 256
+    for blocks of 256 (Hp = h)."""
+    n = 64 if lanes == 128 else 256
+    ring, coeff, _ = _planes8(23, lanes)
+    jwr, jwi = JK._tail_basis(n, lanes, "float32")
+    jo = JK.mac_tail_pallas_hc(jnp.asarray(ring), jnp.asarray(coeff), jwr,
+                               jwi, jnp.int32(pos), interpret=True)
+    wr, wi = K._tail_basis(n, lanes, torch.float32, torch.device("cpu"))
+    to = K.mac_tail_hc(torch.from_numpy(ring), torch.from_numpy(coeff), wr,
+                       wi, pos)
+    assert tuple(to.shape) == (C4, lanes) and to.dtype == torch.float32
+    _close(to, jo)
+    if lanes > n:
+        assert not to[:, n:].any()  # zero basis columns beyond h
+    assert K.mac_tail_hc.launches == 0
+
+
+def test_new_mac_wrappers_refuse_float64_on_cuda(monkeypatch):
+    """K10-K13 compute in float32: a float64 tensor headed for a kernel
+    raises NotImplementedError naming ROADMAP Queue 1 #4 (the device check
+    is stubbed out here: this machine has no CUDA)."""
+    from bfir_tpu_torch.kernels import cuda_lib
+
+    monkeypatch.setattr(cuda_lib, "require_cuda", lambda *a: None)
+    z = torch.zeros((P8, 2 * C4, 128), dtype=torch.float64, device="meta")
+    calls = [
+        lambda: K.mac_chunked(torch.zeros((2 * P8, 2 * C4, 128),
+                                          dtype=torch.float64,
+                                          device="meta"), z, 0, 65),
+        lambda: K.mac_split(z[:, :C4], z[:, :C4], z[:, :C4], z[:, :C4], 0,
+                            65),
+        lambda: K.mac_hc_insert(z, z, z[0], 0),
+        lambda: K.mac_tail_hc(z, z, z[0, :1].expand(128, 128), z[0], 0),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+            call()
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A tensor off the CPU never takes the plain version: the wrappers
     check it for the kernel and raise (here on the meta device)."""
@@ -248,3 +371,11 @@ def test_kernel_wrappers_refuse_other_devices():
         K.mac_hc_band(ring, ring, 0, 0, 128)
     with pytest.raises(ValueError, match="CUDA tensor"):
         CM.corr_mac(torch.zeros((P + 1, 2 * C, HP), device="meta"), ring, 2)
+    for call in (lambda: K.mac_chunked(torch.zeros((2 * P, 2 * C, HP),
+                                                   device="meta"), ring, 0,
+                                       HP, k=1),
+                 lambda: K.mac_split(ring, ring, ring, ring, 0, HP),
+                 lambda: K.mac_hc_insert(ring, ring, ring[0], 0),
+                 lambda: K.mac_tail_hc(ring, ring, ring[0], ring[0], 0)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()

@@ -11,7 +11,7 @@ Phases (any failure exits non-zero before the last line is printed):
 1. preflight: the card's name and power limit; refuses to run without CUDA;
 2. build: compiles the kernels from ``bfir_tpu_torch/csrc`` (one nvcc per
    source, side by side);
-3. kernels: each of K1-K13 against its plain PyTorch version on the card,
+3. kernels: each of K1-K18 against its plain PyTorch version on the card,
    at the shapes its path gives it (64 channels, N = 1024, M = 8192, G = 8,
    the packed ring [128, 128, 1152] over its 1025 live lanes, the
    requantizer [64, 1024]), with the
@@ -48,15 +48,26 @@ Phases (any failure exits non-zero before the last line is printed):
     the max difference from ``step_hc``, ms/block, kernels and copies per
     block and the device-busy share; the rings of ``step_hc2`` and
     ``step_hc_fused`` equal ``step_hc``'s bit for bit;
-12. the render CLI again with ``--delay 0,100``, float32 and then
+12. session G: 160 blocks of seeded noise through ``step_hc``'s data path
+    (frame -> forward transform -> ring insert -> K1 -> inverse tail) with
+    four transform pairs: (a) ``torch.fft`` (``step_hc`` itself, the
+    yardstick), (b) K15 ``rfft_hc_fused`` + K16 ``irfft_hc_tail_fused``,
+    (c) K18 ``rfft_hc_pallas`` + K17 ``irfft_hc_tail_pallas``, (d) K14
+    through ``rfft_split_hc_balanced`` + K4; the same measurements as
+    session F, against (a);
+13. the render CLI again with ``--delay 0,100``, float32 and then
     ``--out-format pcm24 --dither``: gate (b) on the dithered WAV.
 
 Phase 3 also checks K10-K13 at the flagship: K10 (k = 1, 4, 32) and K11
 on the packed ring and coefficients of K8's check, K12 and K13 on hc
 planes [128, 128, 1024] (K12 also with a zero-padded basis and at
-Hp = 2048, untimed; K13's ring bit for bit).
+Hp = 2048, untimed; K13's ring bit for bit), and the FFT family K14-K18
+timed at session G's shape [64, 2048] (h = 1024) beside ``torch.fft``,
+untimed at [64, 16384] (h = 8192), at h = 16384 for K14, K15 and K16, on
+129 rows, K14 inverse and inverse tail-only, and K16/K17 on lane-padded
+planes (h + 128 lanes).
 
-The launch counters are zeroed just before each path (sessions A-F, the
+The launch counters are zeroed just before each path (sessions A-G, the
 two renders) and read just after it; each path must have launched its
 kernels. The last two lines are a JSON object describing the kernels and
 the ``{"ok": true, ...}`` result.
@@ -111,6 +122,16 @@ KERNEL_SOURCES = {
                     "bfir_tpu/kernels/spectrum_mac.py:1016"),
     "mac_hc_insert": ("bfir_tpu_torch/csrc/mac_variants.cu",
                       "bfir_tpu/kernels/spectrum_mac.py:1101"),
+    "cfft_balanced_fused": ("bfir_tpu_torch/csrc/fft_family.cu",
+                            "bfir_tpu/kernels/fft_fused.py:340"),
+    "rfft_hc_fused": ("bfir_tpu_torch/csrc/fft_family.cu",
+                      "bfir_tpu/kernels/fft_fused.py:63"),
+    "irfft_hc_tail_fused": ("bfir_tpu_torch/csrc/fft_family.cu",
+                            "bfir_tpu/kernels/fft_fused.py:215"),
+    "irfft_hc_tail_pallas": ("bfir_tpu_torch/csrc/fft_family.cu",
+                             "bfir_tpu/kernels/fft_pallas.py:108"),
+    "rfft_hc_pallas": ("bfir_tpu_torch/csrc/fft_family.cu",
+                       "bfir_tpu/kernels/fft_pallas.py:226"),
 }
 
 
@@ -366,6 +387,7 @@ def check_kernels():
         mac_cost(ring, coeff, pp, nf, fp))
     out["quantize_hp_tpdf"] = check_quantizer()
     check_uniform_macs(run, mac_cost, ring, coeff)
+    check_fft_family(run)
     return out
 
 
@@ -428,6 +450,88 @@ def check_uniform_macs(run, mac_cost, ring, coeff):
             lambda: K.mac_tail_hc_plain(r, g, wr, wi, 9),
             (_nbytes(r, g, wr, wi) + C * h * 4,
              8 * p * C * h + 4 * C * h * h) if h == hp else None)
+
+
+def check_fft_family(run):
+    """K14-K18 against their plain versions (``torch.fft``). Timed at the
+    shape session G gives them, [64, 2048] (h = 1024), beside the one
+    ``torch.fft`` call computing the same function; untimed at [64, 16384]
+    (h = 8192), at h = 16384 for one kernel of each function (K14, K15,
+    K16), on 129 rows, K14 inverse and inverse tail-only, and K16/K17 on
+    lane-padded planes (h + 128 lanes). Bound: bytes in and out once, or
+    5 h log2 h float32 flops a row."""
+    import torch
+
+    from bfir_tpu_torch.kernels import fft_fused as FF
+    from bfir_tpu_torch.kernels import fft_pallas as FP
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(10)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    forward = {"rfft_hc_fused": (FF.rfft_hc_fused, FF.rfft_hc_fused_plain),
+               "rfft_hc_pallas": (FP.rfft_hc_pallas, FP.rfft_hc_pallas_plain)}
+    inverse = {
+        "irfft_hc_tail_fused": (FF.irfft_hc_tail_fused,
+                                FF.irfft_hc_tail_fused_plain),
+        "irfft_hc_tail_pallas": (FP.irfft_hc_tail_pallas,
+                                 FP.irfft_hc_tail_pallas_plain)}
+    first = ("rfft_hc_fused", "irfft_hc_tail_fused")  # kernels at h = 16384
+
+    def check(name, variant, kernel, plain, cost, library, tail_shape):
+        """``run``; at the tail shape [64, 16384] also the times, logged
+        only (the JSON line keeps session G's shape)."""
+        run(name, variant, kernel, plain, cost, library=library)
+        if tail_shape:
+            ms = _time_pair(name, variant, kernel, plain, library)
+            log(f"kernel {name} [{variant}]: {ms[0] / ms[2]:.2f} x the "
+                "torch.fft call's device time")
+
+    for rows, m in ((C, 2 * N), (C, 16 * N), (129, 2 * N), (C, 32 * N)):
+        h = m // 2
+        main = (rows, m) == (C, 2 * N)  # session G's shape: timed
+        tail_shape = (rows, m) == (C, 16 * N)
+        flops = rows * 5 * h * np.log2(h)
+        x = rn(rows, m)
+        for name, (kernel, plain) in forward.items():
+            if m == 32 * N and name not in first:
+                continue
+            check(name, f"[{rows}, {m}]", lambda: kernel(x),
+                  lambda: plain(x, m),
+                  (2 * _nbytes(x), flops) if main else None,
+                  lambda: torch.fft.rfft(x), tail_shape)
+        for name, (kernel, plain) in inverse.items():
+            if m == 32 * N and name not in first:
+                continue
+            for lanes in ((h, h + 128) if rows == C and m < 32 * N else (h,)):
+                hr, hi = rn(rows, lanes), rn(rows, lanes)
+                spec = torch.complex(
+                    torch.cat([hr[:, :h], hi[:, :1]], 1),
+                    torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:h],
+                               torch.zeros_like(hi[:, :1])], 1))
+                timed = main and lanes == h
+                check(name, f"[{rows}, {lanes}] planes, n {m}",
+                      lambda: kernel(hr, hi, m), lambda: plain(hr, hi, m),
+                      (_nbytes(hr, hi) + rows * h * 4, flops) if timed
+                      else None,
+                      lambda: torch.fft.irfft(spec, n=m)[:, h:],
+                      tail_shape and lanes == h)
+        zr, zi = rn(rows, h), rn(rows, h)
+        zc = torch.complex(zr, zi)
+        for inv, tail in ((False, False), (True, False), (True, True)):
+            if inv and (rows != C or m == 32 * N):
+                continue
+            check("cfft_balanced_fused", f"[{rows}, {h}] "
+                  f"{'inverse' if inv else 'forward'}"
+                  f"{' tail' if tail else ''}",
+                  lambda: FF.cfft_balanced_fused(zr, zi, h, inverse=inv,
+                                                 tail_only=tail),
+                  lambda: FF.cfft_balanced_fused_plain(zr, zi, h, inverse=inv,
+                                                       tail_only=tail),
+                  (2 * _nbytes(zr, zi), flops) if main and not inv else None,
+                  lambda: torch.fft.fft(zc), tail_shape and not inv)
 
 
 def check_quantizer():
@@ -614,10 +718,10 @@ def _device_busy(fn, what, counts=None):
 def _kernels():
     """Every kernel wrapper of the port, by name."""
     from bfir_tpu_torch.kernels import corr_mac as CM
-    from bfir_tpu_torch.kernels import fft_fused as FF
-    from bfir_tpu_torch.kernels import spectrum_mac as K
-
     from bfir_tpu_torch.kernels import dither_kernel as DK
+    from bfir_tpu_torch.kernels import fft_fused as FF
+    from bfir_tpu_torch.kernels import fft_pallas as FP
+    from bfir_tpu_torch.kernels import spectrum_mac as K
 
     return {"mac_hc": K.mac_hc, "mac_hc_tiled": K.mac_hc_tiled,
             "mac_hc_tiled_int": K.mac_hc_tiled_int,
@@ -627,7 +731,12 @@ def _kernels():
             "mac_packed": K.mac_packed,
             "quantize_hp_tpdf": DK.quantize_hp_tpdf,
             "mac_chunked": K.mac_chunked, "mac_split": K.mac_split,
-            "mac_tail_hc": K.mac_tail_hc, "mac_hc_insert": K.mac_hc_insert}
+            "mac_tail_hc": K.mac_tail_hc, "mac_hc_insert": K.mac_hc_insert,
+            "cfft_balanced_fused": FF.cfft_balanced_fused,
+            "rfft_hc_fused": FF.rfft_hc_fused,
+            "irfft_hc_tail_fused": FF.irfft_hc_tail_fused,
+            "irfft_hc_tail_pallas": FP.irfft_hc_tail_pallas,
+            "rfft_hc_pallas": FP.rfft_hc_pallas}
 
 
 def run_path(what, names, fn, *args):
@@ -1086,53 +1195,30 @@ def session_e(cache):
         raise SystemExit("chip_smoke: FractionalDelayLine differs on CUDA")
 
 
-def session_f():
-    """The uniform-step family at the flagship, step_hc beside the four
-    steps this port adds: 160 blocks of seeded noise (past P = 128, so the
-    rings and the doubled ring's mirror wrap) through each step on the
-    card, the input already there and the outputs left there. Per step:
-    the worst-channel SNR against scipy float64, the max difference from
-    step_hc's output, a profile of blocks 144-159 (device busy ms, kernels
-    and copies per block), and the wall ms per block: over blocks 8-143,
-    then over 32 more blocks of each stream in each of 8 rounds that take
-    the steps in turn, in forward and reverse order alternately (the host
-    clock drifts within a run); the rounds give a median and a range.
-    step_hc2's and step_hc_fused's rings must equal step_hc's bit for bit
-    after the 160 blocks."""
+def _drive_steps(what, engines, x, ref, check=None):
+    """160 blocks of x [C, 160 N] through each engine of ``engines`` ({name:
+    (step, init, coefficients, kwargs, kernels)}, the first the yardstick),
+    on the card, the input already there and the outputs left there. Per
+    engine: each wrapper named in ``kernels`` must have launched, the
+    worst-channel SNR of its output against ``ref`` (scipy float64), the
+    max difference from the yardstick's output, a profile of blocks
+    144-159 (device busy ms, kernels and copies per block), and the wall ms
+    per block: over blocks 8-143, then over 32 more blocks of each stream
+    in each of 8 rounds that take the engines in turn, in forward and
+    reverse order alternately (the host clock drifts within a run); the
+    rounds give a median and a range. ``check(states)`` runs after the 160
+    blocks, before the rounds."""
     import torch
 
-    from bfir_tpu_torch.core.spec import FilterSpec
-    from bfir_tpu_torch.kernels import spectrum_mac as K
-
-    dev = torch.device(DEVICE)
-    spec = FilterSpec(N, n_partitions=TAPS // N, dtype="float32")
     blocks, warm, prof, rounds, again = 160, 8, 16, 8, 32
-    h = _impulse(18, C)
-    x = np.random.default_rng(19).standard_normal((C, blocks * N)).astype(
-        np.float32)
-    ref = _shifted_ref(x, h, [0] * C, x.shape[1])
-    xd = torch.from_numpy(x).to(dev)
-    hc = K.hc_coeffs(h, spec, C, device=dev)
-    pk = K.pack_coeffs(h, spec, C, device=dev)
-    split = K.split_coeffs(h, spec, device=dev)
-    hc_state = functools.partial(K.init_hc_state, spec, C, device=dev)
-    engines = {
-        "step_hc": (K.step_hc, hc_state, (hc,), {}),
-        "step_split": (K.step_split, functools.partial(
-            K.init_split_state, spec, C, device=dev), split, {}),
-        "step_chunked": (K.step_chunked, functools.partial(
-            K.init_doubled_state, spec, C, device=dev),
-            (K.chunk_reverse_coeffs(pk, 4),), {"k": 4}),
-        "step_hc2": (K.step_hc2, hc_state, (hc,), {}),
-        "step_hc_fused": (K.step_hc_fused, hc_state, (hc,), {}),
-    }
-    del pk
-    states, walls, y_hc = {}, {}, None
+    xd = torch.from_numpy(x).to(torch.device(DEVICE))
+    states, walls, y0 = {}, {}, None
+    first = next(iter(engines))
 
     def run_blocks(name, a, b, outs=None):
         """Blocks a..b-1 of x through engine ``name``, continuing its
         stream; returns the wall ms per block (synchronised)."""
-        step, _, co, kw = engines[name]
+        step, _, co, kw, _ = engines[name]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(a, b):
@@ -1143,45 +1229,160 @@ def session_f():
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / (b - a)
 
-    for name, (_, init, _, _) in engines.items():
+    for name, (_, init, _, _, names) in engines.items():
+        before = {k: w.launches for k, w in _kernels().items()}
         states[name], outs = init(), []
         run_blocks(name, 0, warm, outs)
         walls[name] = [run_blocks(name, warm, blocks - prof, outs)]
         counts = {}
         _device_busy(lambda: run_blocks(name, blocks - prof, blocks, outs),
-                     f"session F {name}, blocks {blocks - prof}-"
-                     f"{blocks - 1}", counts)
+                     f"{what} {name}, blocks {blocks - prof}-{blocks - 1}",
+                     counts)
+        launched = {k: w.launches - before[k] for k, w in _kernels().items()}
+        for k in names:
+            if launched[k] < blocks:
+                raise SystemExit(f"chip_smoke: {what} {name} launched {k} "
+                                 f"{launched[k]} times in {blocks} blocks")
         y = torch.cat(outs, dim=1)
-        if name == "step_hc":
-            y_hc = y
-        diff = float((y - y_hc).abs().max() / y_hc.abs().max())
+        if y0 is None:
+            y0 = y
+        diff = float((y - y0).abs().max() / y0.abs().max())
         yn = y.cpu().numpy()
         if yn.shape != x.shape or not np.isfinite(yn).all():
-            raise SystemExit(f"chip_smoke: session F {name} gave "
+            raise SystemExit(f"chip_smoke: {what} {name} gave "
                              f"{yn.shape} or non-finite values")
         dev_ms = counts["busy_ms"] / prof
-        log(f"session F {name}: {walls[name][0]:.4f} ms/block wall (blocks "
+        log(f"{what} {name}: {walls[name][0]:.4f} ms/block wall (blocks "
             f"{warm}-{blocks - prof - 1}, C={C}, N={N}, {TAPS} taps), "
             f"{counts['kernels'] / prof:.2f} kernels and "
             f"{counts['copies'] / prof:.2f} copies per block, device "
             f"{dev_ms:.4f} ms/block = {100 * dev_ms / walls[name][0]:.1f}% of "
-            f"that wall; max |y - step_hc| / max|step_hc| {diff:.3e}")
-        _snr_gate(_shifted_snr_db(yn, ref), f"session F {name}")
+            f"that wall; max |y - {first}| / max|{first}| {diff:.3e}; "
+            "launches " + ", ".join(f"{k} {n}" for k, n in launched.items()
+                                    if n))
+        _snr_gate(_shifted_snr_db(yn, ref), f"{what} {name}")
         del outs, y
-    for name in ("step_hc2", "step_hc_fused"):
-        if not torch.equal(states[name].ring, states["step_hc"].ring):
-            raise SystemExit(f"chip_smoke: session F {name}'s ring differs "
-                             "from step_hc's")
-    log("session F: step_hc2's and step_hc_fused's rings equal step_hc's "
-        "bit for bit after 160 blocks")
+    if check is not None:
+        check(states)
     order = list(engines)
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             walls[name].append(run_blocks(name, 0, again))
-    log(f"session F: ms/block wall over {rounds} rounds of {again} blocks "
-        "per step (median, min-max): " + "; ".join(
+    log(f"{what}: ms/block wall over {rounds} rounds of {again} blocks "
+        "per engine (median, min-max): " + "; ".join(
             f"{name} {np.median(w[1:]):.4f} ({min(w[1:]):.4f}-"
             f"{max(w[1:]):.4f})" for name, w in walls.items()))
+
+
+def _noise_and_ref(impulse_seed, x_seed):
+    """A flagship impulse, 160 blocks of seeded noise and scipy's float64
+    convolution of the two."""
+    h = _impulse(impulse_seed, C)
+    x = np.random.default_rng(x_seed).standard_normal((C, 160 * N)).astype(
+        np.float32)
+    return h, x, _shifted_ref(x, h, [0] * C, x.shape[1])
+
+
+def session_f():
+    """The uniform-step family at the flagship, step_hc beside the four
+    other uniform steps (``_drive_steps``; 160 blocks run past P = 128,
+    so the rings and the doubled ring's mirror wrap). step_hc2's and
+    step_hc_fused's rings must equal step_hc's bit for bit after the 160
+    blocks."""
+    import torch
+
+    from bfir_tpu_torch.core.spec import FilterSpec
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+
+    dev = torch.device(DEVICE)
+    spec = FilterSpec(N, n_partitions=TAPS // N, dtype="float32")
+    h, x, ref = _noise_and_ref(18, 19)
+    hc = K.hc_coeffs(h, spec, C, device=dev)
+    pk = K.pack_coeffs(h, spec, C, device=dev)
+    split = K.split_coeffs(h, spec, device=dev)
+    hc_state = functools.partial(K.init_hc_state, spec, C, device=dev)
+    engines = {
+        "step_hc": (K.step_hc, hc_state, (hc,), {}, ("mac_hc",)),
+        "step_split": (K.step_split, functools.partial(
+            K.init_split_state, spec, C, device=dev), split, {},
+            ("mac_split",)),
+        "step_chunked": (K.step_chunked, functools.partial(
+            K.init_doubled_state, spec, C, device=dev),
+            (K.chunk_reverse_coeffs(pk, 4),), {"k": 4}, ("mac_chunked",)),
+        "step_hc2": (K.step_hc2, hc_state, (hc,), {}, ("mac_hc_insert",)),
+        "step_hc_fused": (K.step_hc_fused, hc_state, (hc,), {},
+                          ("mac_tail_hc",)),
+    }
+    del pk
+
+    def rings_equal(states):
+        for name in ("step_hc2", "step_hc_fused"):
+            if not torch.equal(states[name].ring, states["step_hc"].ring):
+                raise SystemExit(f"chip_smoke: session F {name}'s ring "
+                                 "differs from step_hc's")
+        log("session F: step_hc2's and step_hc_fused's rings equal "
+            "step_hc's bit for bit after 160 blocks")
+
+    _drive_steps("session F", engines, x, ref, rings_equal)
+
+
+def _transform_step(forward, inverse):
+    """``step_hc``'s data path with its two transforms swapped: the frame
+    [prev | block] through ``forward`` to halfcomplex planes, the planes
+    into ring slot pos, K1, the tail through ``inverse``."""
+    import torch
+
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+
+    def step(state, coeff_pk, block):
+        p, c2, _ = state.ring.shape
+        n = block.shape[-1]
+        frame = torch.cat([state.prev_block, block], dim=-1)
+        hr, hi = forward(frame)
+        pos = state.blockcounter % p
+        state.ring[pos, :c2 // 2] = hr
+        state.ring[pos, c2 // 2:] = hi
+        yr, yi = K.mac_hc(state.ring, coeff_pk, pos)
+        return (K.HcState(state.ring, frame[:, n:], state.blockcounter + 1),
+                inverse(yr, yi, 2 * n))
+
+    return step
+
+
+def session_g():
+    """The FFT family on the step_hc data path at the flagship (n = 2048,
+    h = Hp = 1024): (a) step_hc itself, torch.fft both ways (the
+    yardstick); (b) K15 + K16; (c) K18 + K17; (d) K14 through
+    rfft_split_hc_balanced + K4; each with K1 between (``_drive_steps``).
+    The reference's law test (tests/test_kernels.py::
+    test_fused_roundtrip_convolution_law) at full width."""
+    import torch
+
+    from bfir_tpu_torch.core.spec import FilterSpec
+    from bfir_tpu_torch.kernels import fft_fused as FF
+    from bfir_tpu_torch.kernels import fft_pallas as FP
+    from bfir_tpu_torch.kernels import spectrum_mac as K
+
+    dev = torch.device(DEVICE)
+    spec = FilterSpec(N, n_partitions=TAPS // N, dtype="float32")
+    h, x, ref = _noise_and_ref(20, 21)
+    hc = K.hc_coeffs(h, spec, C, device=dev)
+    init = functools.partial(K.init_hc_state, spec, C, device=dev)
+    engines = {
+        "(a) step_hc, torch.fft": (K.step_hc, init, (hc,), {}, ("mac_hc",)),
+        "(b) K15 + K16": (
+            _transform_step(FF.rfft_hc_fused, FF.irfft_hc_tail_fused), init,
+            (hc,), {}, ("mac_hc", "rfft_hc_fused", "irfft_hc_tail_fused")),
+        "(c) K18 + K17": (
+            _transform_step(FP.rfft_hc_pallas, FP.irfft_hc_tail_pallas), init,
+            (hc,), {}, ("mac_hc", "rfft_hc_pallas", "irfft_hc_tail_pallas")),
+        "(d) K14 + K4": (
+            _transform_step(FF.rfft_split_hc_balanced,
+                            FF.irfft_split_hc_tail_balanced), init, (hc,), {},
+            ("mac_hc", "cfft_balanced_fused",
+             "irfft_split_hc_tail_balanced")),
+    }
+    _drive_steps("session G", engines, x, ref)
 
 
 def main():
@@ -1209,6 +1410,10 @@ def main():
         ("session E", ("mac_packed", "quantize_hp_tpdf"), session_e, cache),
         ("session F", ("mac_hc", "mac_split", "mac_chunked", "mac_hc_insert",
                        "mac_tail_hc"), session_f),
+        ("session G", ("mac_hc", "cfft_balanced_fused", "rfft_hc_fused",
+                       "irfft_hc_tail_fused", "irfft_hc_tail_pallas",
+                       "rfft_hc_pallas", "irfft_split_hc_tail_balanced"),
+         session_g),
     ]
     total = dict.fromkeys(kernels, 0)
     for what, names, fn, *args in paths:

@@ -32,19 +32,22 @@
 // them: the passes of a row through shared memory and the barriers between
 // the stages do, and 64 rows are 64 blocks on 132 SMs.
 //
-// Design, against that: one block per row keeps the whole sequence in
-// dynamic shared memory (8 h bytes, 128 KB at the h = 16384 limit, above the
-// 48 KB static limit, so each launch raises the kernel's
-// MaxDynamicSharedMemorySize first); the block is sized to a stage's work,
-// not fixed at 1024 threads. The decompositions differ in how many
-// block-wide barriers they need, which is what the family measures:
-//   - K18 (radix-2, as K4): log2 h stages, 10 barriers at h = 1024;
+// Design, against that (K15-K18; K14 below): one block per row keeps the
+// whole sequence in dynamic shared memory (8 h bytes, 128 KB at the
+// h = 16384 limit, above the 48 KB static limit, so each launch raises the
+// kernel's MaxDynamicSharedMemorySize first); the block is sized to a
+// stage's work, not fixed at 1024 threads. The decompositions differ in how
+// many block-wide barriers they need, which is what the family measures:
+//   - K18 (radix-2): log2 h stages, 10 barriers at h = 1024;
 //   - K15 (radix-4): log4 h stages, 5 at h = 1024 (6 + 1 at h = 8192);
-//   - K14 (the balanced n1 x 128 split): log2 n1 radix-2 stages over 128
-//     interleaved columns (3 at h = 1024), then each length-128 row DFT in
-//     one warp, four points a lane, with shuffles and no block barrier; the
-//     twiddle is folded into the row loads and the k1-major -> natural
-//     reorder into the store index;
+//   - K14 (redesigned): the register-radix, self-sorting core of
+//     fft_common.cuh (bfir::fft::core), 16 points a thread (32 at
+//     h = 8192): butterflies in registers, a radix-32 one over two lane
+//     groups with shuffles, Stockham passes through a swizzled, conflict-free
+//     buffer, one block barrier at h = 1024 (32 x 32) and three at
+//     h = 8192 (32 x 16 x 16), loads from and stores to device memory
+//     straight from registers; its shared-memory size is raised once per
+//     size and device, not on every launch;
 //   - K16 (radix-4 DIF): the tangle and the radix-4 butterflies of the
 //     four contiguous spectrum quarters in one pass, then four length-h/4
 //     inverse sub-transforms whose last radix-4 stage computes only the
@@ -57,7 +60,7 @@
 // into bit-reversed positions; the inverse kernels read lane-padded planes
 // through their row stride. Twiddles come from one table per length,
 // tw[t] = e^{-2 pi i t / 2h} for t < 2h, built in float64 and rounded once to
-// float32. Shared-memory bank conflicts of the strided stages are not
+// float32. Shared-memory bank conflicts of K15-K18's strided stages are not
 // avoided yet: a correct kernel first.
 
 #include <cuda_runtime.h>
@@ -67,6 +70,7 @@
 namespace {
 
 namespace F = bfir::fft;
+namespace C = bfir::fft::core;
 
 constexpr int kMaxH = 16384;  // 128 KB of float2 shared memory
 
@@ -218,76 +222,56 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// K14: the balanced split h = n1 x 128, j = 128 j1 + j2, k = n1 k2 + k1:
-// X[k] = sum_j2 W_128^{j2 k2} W_h^{j2 k1} sum_j1 W_n1^{j1 k1} z[j].
-__global__ void __launch_bounds__(1024)
+// K14: the length-h complex FFT of split planes on the register-radix core
+// (fft_common.cuh): pass 0 loads zr[k], zi[k] coalesced, the last pass
+// writes natural-order split planes from registers, x 1/h for the inverse,
+// only outputs [h/2, h) with TAIL.
+template <class Sh, bool INV, bool TAIL>
+__global__ void __launch_bounds__(Sh::T)
     cfft_balanced_kernel(const float* __restrict__ zr,
                          const float* __restrict__ zi,
                          float* __restrict__ out_r, float* __restrict__ out_i,
-                         const float2* __restrict__ tw, int h, int log2n1,
-                         bool inverse, bool tail_only) {
-  extern __shared__ float2 z[];
-  const int n1 = h >> 7;
-  const long long in_off = static_cast<long long>(blockIdx.x) * h;
-  // stage 1: 128 column DFTs of length n1, columns interleaved (row j1 of
-  // z is [128] wide), rows in bit-reversed order
-  for (int j = threadIdx.x; j < h; j += blockDim.x)
-    z[(F::bitrev(j >> 7, log2n1) << 7) | (j & 127)] =
-        make_float2(__ldg(zr + in_off + j), __ldg(zi + in_off + j));
-  __syncthreads();
-  for (int half = 1; half < n1; half <<= 1) {
-    F::radix2_stage(z, h, 7, half, tw, 2 * h, inverse);
-    __syncthreads();
-  }
-  // stage 2: row k1 of z holds A[j2, k1]; one warp per row: lane l takes
-  // j2 = l + 32 q, folds in the twiddle W_h^{j2 k1}, runs the radix-4
-  // butterfly over q in registers (k2 = r + 4 m), then the length-32 DFT
-  // over the lanes (decimation in frequency with shuffles: lane l ends with
-  // m = bitrev5(l)), and writes X[n1 (r + 4 m) + k1] back to its own row
-  const int lane = threadIdx.x & 31;
-  const int step128 = (2 * h) >> 7;  // W_128^t = tw[t * step128]
-  for (int k1 = threadIdx.x >> 5; k1 < n1; k1 += blockDim.x >> 5) {
-    float2* row = z + (k1 << 7);
-    float2 a[4];
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      const int j2 = lane + 32 * qq;
-      a[qq] = F::mul(F::twiddle(tw, 2 * j2 * k1, inverse), row[j2]);
-    }
-    const float2 t0 = F::add(a[0], a[2]), t1 = F::sub(a[0], a[2]);
-    const float2 t2 = F::add(a[1], a[3]);
-    const float2 t3 = F::rot(F::sub(a[1], a[3]), inverse);
-    float2 b[4] = {F::add(t0, t2), F::add(t1, t3), F::sub(t0, t2),
-                   F::sub(t1, t3)};
-#pragma unroll
-    for (int r = 1; r < 4; ++r)
-      b[r] = F::mul(F::twiddle(tw, lane * r * step128, inverse), b[r]);
-#pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) {
-      const float2 w = F::twiddle(tw, (lane & (d - 1)) * (h / d), inverse);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float2 p = make_float2(__shfl_xor_sync(0xffffffffu, b[r].x, d),
-                                     __shfl_xor_sync(0xffffffffu, b[r].y, d));
-        b[r] = (lane & d) ? F::mul(F::sub(p, b[r]), w) : F::add(b[r], p);
-      }
-    }
-    __syncwarp();
-    const int m = F::bitrev(lane, 5);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) row[r + 4 * m] = b[r];
-  }
-  __syncthreads();
-  // natural order: k = n1 k2 + k1 sits at row k1, column k2
-  const int h_out = tail_only ? h >> 1 : h;
-  const int k0 = h - h_out;
-  const float s = inverse ? 1.0f / static_cast<float>(h) : 1.0f;
-  const long long out_off = static_cast<long long>(blockIdx.x) * h_out;
-  for (int t = threadIdx.x; t < h_out; t += blockDim.x) {
-    const int k = k0 + t;
-    const float2 v = z[((k & (n1 - 1)) << 7) | (k >> log2n1)];
-    out_r[out_off + t] = v.x * s;
-    out_i[out_off + t] = v.y * s;
+                         const float2* __restrict__ tw) {
+  constexpr int kOut = TAIL ? Sh::H / 2 : Sh::H;
+  extern __shared__ float2 smem[];
+  float2* q = smem + Sh::H;
+  C::stage_quarter<Sh::L>(q, tw);
+  const long long row = blockIdx.x;
+  const long long in_off = row * Sh::H;
+  const long long out_off = row * kOut - (Sh::H - kOut);
+  const float s = INV ? 1.0f / static_cast<float>(Sh::H) : 1.0f;
+  C::run<Sh, INV, TAIL>(
+      smem, q, threadIdx.x,
+      [&](int k) {
+        return make_float2(__ldg(zr + in_off + k), __ldg(zi + in_off + k));
+      },
+      [&](int k, float2 v) {
+        out_r[out_off + k] = v.x * s;
+        out_i[out_off + k] = v.y * s;
+      });
+}
+
+// 16 points a thread, 32 at h = 8192 (fewer, fuller threads measured
+// faster there)
+template <int L, bool INV, bool TAIL, class Sh = C::Shape<L, L == 13 ? 32 : 16>>
+int launch_cfft(const float* zr, const float* zi, float* out_r, float* out_i,
+                const float2* tw, int rows, cudaStream_t stream) {
+  return static_cast<int>(
+      C::launch_rows<cfft_balanced_kernel<Sh, INV, TAIL>, Sh>(
+          rows, stream, zr, zi, out_r, out_i, tw));
+}
+
+template <bool INV, bool TAIL>
+int launch_cfft_h(const float* zr, const float* zi, float* o_r, float* o_i,
+                  const float2* tw, int rows, int h, cudaStream_t s) {
+  switch (h) {
+    case 1024: return launch_cfft<10, INV, TAIL>(zr, zi, o_r, o_i, tw, rows, s);
+    case 2048: return launch_cfft<11, INV, TAIL>(zr, zi, o_r, o_i, tw, rows, s);
+    case 4096: return launch_cfft<12, INV, TAIL>(zr, zi, o_r, o_i, tw, rows, s);
+    case 8192: return launch_cfft<13, INV, TAIL>(zr, zi, o_r, o_i, tw, rows, s);
+    case 16384:
+      return launch_cfft<14, INV, TAIL>(zr, zi, o_r, o_i, tw, rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -309,20 +293,19 @@ cudaError_t prepare(Kernel kernel, int h) {
 // every entry point below. Each returns the cudaError_t of its launch.
 
 // K14. zr, zi: [rows, h] contiguous; out_r, out_i: [rows, h] or, with
-// tail_only, [rows, h/2].
+// tail_only, [rows, h/2]; h a power of two in [1024, 16384].
 extern "C" int bfir_cfft_balanced(const float* zr, const float* zi,
                                   float* out_r, float* out_i, const float* tw,
                                   int rows, int h, int inverse, int tail_only,
                                   void* stream) {
-  if (rows < 1 || bad_h(h, 1024)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = prepare(cfft_balanced_kernel, h);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = clamp_threads(h >> 1);
-  cfft_balanced_kernel<<<rows, threads, h * sizeof(float2),
-                         static_cast<cudaStream_t>(stream)>>>(
-      zr, zi, out_r, out_i, reinterpret_cast<const float2*>(tw), h,
-      log2_of(h >> 7), inverse != 0, tail_only != 0);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* t = reinterpret_cast<const float2*>(tw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto fn = inverse ? (tail_only ? launch_cfft_h<true, true>
+                                       : launch_cfft_h<true, false>)
+                          : (tail_only ? launch_cfft_h<false, true>
+                                       : launch_cfft_h<false, false>);
+  return fn(zr, zi, out_r, out_i, t, rows, h, s);
 }
 
 // K15 (radix4 = 1) and K18 (radix4 = 0). x: [rows, 2h] contiguous, 8-byte

@@ -39,9 +39,8 @@ _SIGNATURES = {
     # P, C, Cs, hp, band_start, band_len, pos, stream
     "bfir_mac_hc": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
-    # hr, hi, in_stride, out, tw_n, tw_h, rows, h, stream
-    "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
-                           _P],
+    # hr, hi, in_stride, out, tw, rows, h, stream
+    "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _P],
     # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, b_chunk, stream
     "bfir_corr_mac": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # ring, coeff, yr, yi, P, C, fp, lanes, pos, stream

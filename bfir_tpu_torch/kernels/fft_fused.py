@@ -5,22 +5,24 @@
   inverse real FFT, by the real-packing route: tangle the spectrum into that
   of the length-h complex sequence z[j] = x[2j] + i x[2j+1] (h = n/2),
   inverse-transform z, keep its tail half and interleave (re, im) into
-  sample pairs (``csrc/irfft_hc_tail.cu``, radix-2).
+  sample pairs (``csrc/irfft_hc_tail.cu``, on the register-radix core of
+  ``csrc/fft_common.cuh``).
 - ``cfft_balanced_fused(zr, zi, h, *, inverse, tail_only=False)`` (K14):
-  the length-h complex FFT of split planes, natural order, by the balanced
-  h = n1 x 128 split; ``rfft_split_hc_balanced(x, n=None)`` wraps it in the
-  reference's deinterleave and untangle, kept in PyTorch around the kernel
-  as the reference keeps them in XLA.
+  the length-h complex FFT of split planes, natural order, on the same
+  register-radix core as K4; ``rfft_split_hc_balanced(x, n=None)`` wraps
+  it in the reference's deinterleave and untangle, kept in PyTorch around
+  the kernel as the reference keeps them in XLA.
 - ``rfft_hc_fused(x, n=None)`` (K15): rfft -> halfcomplex planes by radix-4
   passes.
 - ``irfft_hc_tail_fused(hr, hi, n)`` (K16): K4's function as a radix-4
   decimation in frequency with the tail folded into the sub-transforms.
 
-K14-K16 live in ``csrc/fft_family.cu``. Each kernel computes its transform
-in its own body; the plain version beside each wrapper runs ``torch.fft``
-on CPU tensors (float32 or float64), and CUDA tensors (float32) launch the
-kernel or raise. The TPU tiling arguments (``rows_per_tile``,
-``interpret``) are dropped.
+K14-K16 live in ``csrc/fft_family.cu``; K4 and K14 share the core in
+``csrc/fft_common.cuh`` (``tests/test_torch_fft_core.py`` models it).
+Each kernel computes its transform in its own body; the plain version
+beside each wrapper runs ``torch.fft`` on CPU tensors (float32 or
+float64), and CUDA tensors (float32) launch the kernel or raise. The TPU
+tiling arguments (``rows_per_tile``, ``interpret``) are dropped.
 """
 
 from __future__ import annotations
@@ -44,15 +46,6 @@ def _twiddles(n: int) -> np.ndarray:
     """e^{+2 pi i k / n} for k < n/2, built in float64: (cos, sin) pairs."""
     ang = 2.0 * np.pi * np.arange(n // 2) / n
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-
-
-@functools.lru_cache(maxsize=16)
-def _device_tables(h: int, device: torch.device):
-    """The kernel's float32 twiddle tables on ``device``: the tangle's
-    e^{+2 pi i k / 2h} (k < h) and the FFT's e^{+2 pi i j / h} (j < h/2)."""
-    tw_n = torch.from_numpy(_twiddles(2 * h).astype(np.float32)).to(device)
-    tw_h = torch.from_numpy(_twiddles(h).astype(np.float32)).to(device)
-    return tw_n, tw_h
 
 
 def _tangle(hr: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
@@ -92,7 +85,8 @@ def irfft_split_hc_tail_balanced(hr: torch.Tensor, hi: torch.Tensor,
                                  n: int) -> torch.Tensor:
     """K4: ``irfft_split_hc(hr, hi, n)[..., n/2:]`` for halfcomplex planes
     [..., >= n/2] (lane padding ignored) -> [..., n/2]. CUDA inputs must be
-    float32 with unit lane stride; h = n/2 a power of two <= 16384. Replaces
+    float32 with unit lane stride; h = n/2 a power of two in [1024, 16384]
+    (``cfft_balanced_fused``'s own rule; ValueError otherwise). Replaces
     ``fft_fused.irfft_split_hc_tail_balanced`` (``cfft_balanced_fused``)."""
     h = n // 2
     if hr.device.type == "cpu":
@@ -102,8 +96,9 @@ def irfft_split_hc_tail_balanced(hr: torch.Tensor, hi: torch.Tensor,
                          f"{hr.device}, {hi.device}")
     if hr.dtype != torch.float32 or hi.dtype != torch.float32:
         raise TypeError(f"hr, hi must be float32, got {hr.dtype}, {hi.dtype}")
-    if h < 2 or h & (h - 1) or h > 16384:
-        raise ValueError(f"h = n/2 must be a power of two <= 16384, got {h}")
+    if h < 1024 or h & (h - 1) or h > 16384:
+        raise ValueError(f"the CUDA kernel needs h = n/2 a power of two in "
+                         f"[1024, 16384], got {h}")
     if hr.shape != hi.shape or hr.shape[-1] < h:
         raise ValueError(f"hr {tuple(hr.shape)} and hi {tuple(hi.shape)} "
                          f"must match, with >= {h} lanes")
@@ -116,13 +111,13 @@ def irfft_split_hc_tail_balanced(hr: torch.Tensor, hi: torch.Tensor,
         raise ValueError("hr, hi must have unit lane stride and equal row "
                          "strides")
     out = torch.empty((rows, h), dtype=torch.float32, device=hr.device)
-    tw_n, tw_h = _device_tables(h, hr.device)
+    tw = _device_table(h, hr.device)
     lib = cuda_lib.load()
     with torch.cuda.device(hr.device):
         err = lib.bfir_irfft_hc_tail(hr2.data_ptr(), hi2.data_ptr(),
                                      hr2.stride(0), out.data_ptr(),
-                                     tw_n.data_ptr(), tw_h.data_ptr(), rows,
-                                     h, cuda_lib.stream_of(out))
+                                     tw.data_ptr(), rows, h,
+                                     cuda_lib.stream_of(out))
     cuda_lib.check(err, "irfft_split_hc_tail_balanced")
     irfft_split_hc_tail_balanced.launches += 1
     return out.reshape(*batch, h)

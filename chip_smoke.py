@@ -58,19 +58,23 @@ Phases (any failure exits non-zero before the last line is printed):
 13. the render CLI again with ``--delay 0,100``, float32 and then
     ``--out-format pcm24 --dither``: gate (b) on the dithered WAV.
 
-Phase 3 also checks K10-K13 at the flagship: K10 (k = 1, 4, 32) and K11
-on the packed ring and coefficients of K8's check, K12 and K13 on hc
-planes [128, 128, 1024] (K12 also with a zero-padded basis and at
-Hp = 2048, untimed; K13's ring bit for bit), and the FFT family K14-K18
-timed at session G's shape [64, 2048] (h = 1024) beside ``torch.fft``,
-untimed at [64, 16384] (h = 8192), at h = 16384 for K14, K15 and K16, on
-129 rows, K14 inverse and inverse tail-only, and K16/K17 on lane-padded
-planes (h + 128 lanes).
+Phase 3 also checks K4 at h = 1024, 8192 and 16384 on 64 and 129 rows of
+planes with h and h + 128 lanes (timed at [64, 8192]), K10-K13 at the
+flagship: K10 (k = 1, 4, 32) and K11 on the packed ring and coefficients
+of K8's check, K12 and K13 on hc planes [128, 128, 1024] (K12 also with a
+zero-padded basis and at Hp = 2048, untimed; K13's ring bit for bit), and
+the FFT family K14-K18 timed at session G's shape [64, 2048] (h = 1024)
+beside ``torch.fft`` and at [64, 16384] (h = 8192), at h = 16384 for K14,
+K15 and K16, on 129 rows, K14 in every mode (forward, inverse, each
+tail-only) at h = 1024, 8192 and 16384 on 64 and 129 rows, and K16/K17 on
+lane-padded planes (h + 128 lanes).
 
 The launch counters are zeroed just before each path (sessions A-G, the
 two renders) and read just after it; each path must have launched its
-kernels. The last two lines are a JSON object describing the kernels and
-the ``{"ok": true, ...}`` result.
+kernels. The last two lines are a JSON object describing the card
+(``nvidia-smi``'s name and power limit) and the kernels (K14 with its
+times at [64, 8192] forward as well, under "also"), and the
+``{"ok": true, ...}`` result.
 """
 
 import functools
@@ -139,7 +143,11 @@ def log(msg):
     print(msg, flush=True)
 
 
+CARD = None  # nvidia-smi's "name, power.limit" of card 0, set by preflight
+
+
 def preflight():
+    global CARD
     import torch
 
     if not torch.cuda.is_available():
@@ -150,7 +158,8 @@ def preflight():
                          capture_output=True, text=True, timeout=60)
     if smi.returncode or not smi.stdout.strip():
         raise SystemExit(f"chip_smoke: nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,16 +343,23 @@ def check_kernels():
                 lambda: K.mac_reference_hc_int(ring, coeff, 9),
                 mac_cost(tuple(ring), tuple(coeff), pt, ht, ht)
                 if cs == C and bits == 24 else None)
-    hr, hi = rn(C, ht), rn(C, ht)
-    spec = torch.complex(torch.cat([hr, hi[:, :1]], 1),
-                         torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:],
-                                    torch.zeros_like(hi[:, :1])], 1))
-    k4_flops = C * (5 * ht * np.log2(ht) + 10 * ht)  # FFT + tangle per row
-    run("irfft_split_hc_tail_balanced", f"[{C}, {ht}]",
-        lambda: FF.irfft_split_hc_tail_balanced(hr, hi, 2 * ht),
-        lambda: FF.irfft_split_hc_tail_plain(hr, hi, 2 * ht),
-        (_nbytes(hr, hi) + C * ht * 4, k4_flops),
-        library=lambda: torch.fft.irfft(spec, n=2 * ht)[:, ht:])
+    # K4: timed at the tail-fire shape [64, 8192]; checked at h = 1024,
+    # 8192 and 16384, on 64 and 129 rows, on planes with h and h + 128 lanes
+    for h, rows, lanes in [(h, rows, lanes) for h in (ht, N, 16 * N)
+                           for rows in (C, 129) for lanes in (h, h + 128)]:
+        hr, hi = rn(rows, lanes), rn(rows, lanes)
+        main = (h, rows, lanes) == (ht, C, ht)
+        spec = torch.complex(
+            torch.cat([hr[:, :h], hi[:, :1]], 1),
+            torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:h],
+                       torch.zeros_like(hi[:, :1])], 1))
+        k4_flops = rows * (5 * h * np.log2(h) + 10 * h)  # FFT + tangle
+        run("irfft_split_hc_tail_balanced", f"[{rows}, {lanes}] planes, "
+            f"n {2 * h}",
+            lambda: FF.irfft_split_hc_tail_balanced(hr, hi, 2 * h),
+            lambda: FF.irfft_split_hc_tail_plain(hr, hi, 2 * h),
+            (_nbytes(hr, hi) + rows * h * 4, k4_flops) if main else None,
+            library=lambda: torch.fft.irfft(spec, n=2 * h)[:, h:])
     # K5 / K6: one band of the split tail, band 0 (lane-0 law) and band 3
     for cs in (C, 1):
         ring, coeff = rn(pt, 2 * C, ht), rn(pt, 2 * cs, ht)
@@ -387,7 +403,8 @@ def check_kernels():
         mac_cost(ring, coeff, pp, nf, fp))
     out["quantize_hp_tpdf"] = check_quantizer()
     check_uniform_macs(run, mac_cost, ring, coeff)
-    check_fft_family(run)
+    for name, at in check_fft_family(run).items():
+        out[name]["also"] = at
     return out
 
 
@@ -455,11 +472,13 @@ def check_uniform_macs(run, mac_cost, ring, coeff):
 def check_fft_family(run):
     """K14-K18 against their plain versions (``torch.fft``). Timed at the
     shape session G gives them, [64, 2048] (h = 1024), beside the one
-    ``torch.fft`` call computing the same function; untimed at [64, 16384]
-    (h = 8192), at h = 16384 for one kernel of each function (K14, K15,
-    K16), on 129 rows, K14 inverse and inverse tail-only, and K16/K17 on
-    lane-padded planes (h + 128 lanes). Bound: bytes in and out once, or
-    5 h log2 h float32 flops a row."""
+    ``torch.fft`` call computing the same function, and at [64, 16384]
+    (h = 8192), logged; checked at h = 16384 for one kernel of each
+    function (K14, K15, K16), on 129 rows, and K16/K17 on lane-padded
+    planes (h + 128 lanes). K14 is checked forward, inverse and both
+    tail-only at h = 1024, 8192 and 16384 on 64 and 129 rows. Bound: bytes
+    in and out once, or 5 h log2 h float32 flops a row. Returns
+    {"cfft_balanced_fused": its times at [64, 8192] forward}."""
     import torch
 
     from bfir_tpu_torch.kernels import fft_fused as FF
@@ -480,58 +499,76 @@ def check_fft_family(run):
                                  FP.irfft_hc_tail_pallas_plain)}
     first = ("rfft_hc_fused", "irfft_hc_tail_fused")  # kernels at h = 16384
 
+    extra = {}
+
     def check(name, variant, kernel, plain, cost, library, tail_shape):
         """``run``; at the tail shape [64, 16384] also the times, logged
-        only (the JSON line keeps session G's shape)."""
+        (the JSON line keeps session G's shape, and K14 forward's times at
+        [64, 8192] in an extra entry). Returns the times or None."""
         run(name, variant, kernel, plain, cost, library=library)
         if tail_shape:
             ms = _time_pair(name, variant, kernel, plain, library)
             log(f"kernel {name} [{variant}]: {ms[0] / ms[2]:.2f} x the "
                 "torch.fft call's device time")
+            return ms
+        return None
 
-    for rows, m in ((C, 2 * N), (C, 16 * N), (129, 2 * N), (C, 32 * N)):
+    shapes = ((C, 2 * N), (C, 16 * N), (129, 2 * N), (C, 32 * N),
+              (129, 16 * N), (129, 32 * N))
+    for rows, m in shapes:
         h = m // 2
         main = (rows, m) == (C, 2 * N)  # session G's shape: timed
         tail_shape = (rows, m) == (C, 16 * N)
         flops = rows * 5 * h * np.log2(h)
-        x = rn(rows, m)
-        for name, (kernel, plain) in forward.items():
-            if m == 32 * N and name not in first:
-                continue
-            check(name, f"[{rows}, {m}]", lambda: kernel(x),
-                  lambda: plain(x, m),
-                  (2 * _nbytes(x), flops) if main else None,
-                  lambda: torch.fft.rfft(x), tail_shape)
-        for name, (kernel, plain) in inverse.items():
-            if m == 32 * N and name not in first:
-                continue
-            for lanes in ((h, h + 128) if rows == C and m < 32 * N else (h,)):
-                hr, hi = rn(rows, lanes), rn(rows, lanes)
-                spec = torch.complex(
-                    torch.cat([hr[:, :h], hi[:, :1]], 1),
-                    torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:h],
-                               torch.zeros_like(hi[:, :1])], 1))
-                timed = main and lanes == h
-                check(name, f"[{rows}, {lanes}] planes, n {m}",
-                      lambda: kernel(hr, hi, m), lambda: plain(hr, hi, m),
-                      (_nbytes(hr, hi) + rows * h * 4, flops) if timed
-                      else None,
-                      lambda: torch.fft.irfft(spec, n=m)[:, h:],
-                      tail_shape and lanes == h)
+        if rows == C or m == 2 * N:
+            x = rn(rows, m)
+            for name, (kernel, plain) in forward.items():
+                if m == 32 * N and name not in first:
+                    continue
+                check(name, f"[{rows}, {m}]", lambda: kernel(x),
+                      lambda: plain(x, m),
+                      (2 * _nbytes(x), flops) if main else None,
+                      lambda: torch.fft.rfft(x), tail_shape)
+            for name, (kernel, plain) in inverse.items():
+                if m == 32 * N and name not in first:
+                    continue
+                for lanes in ((h, h + 128) if rows == C and m < 32 * N
+                              else (h,)):
+                    hr, hi = rn(rows, lanes), rn(rows, lanes)
+                    spec = torch.complex(
+                        torch.cat([hr[:, :h], hi[:, :1]], 1),
+                        torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:h],
+                                   torch.zeros_like(hi[:, :1])], 1))
+                    timed = main and lanes == h
+                    check(name, f"[{rows}, {lanes}] planes, n {m}",
+                          lambda: kernel(hr, hi, m), lambda: plain(hr, hi, m),
+                          (_nbytes(hr, hi) + rows * h * 4, flops) if timed
+                          else None,
+                          lambda: torch.fft.irfft(spec, n=m)[:, h:],
+                          tail_shape and lanes == h)
+        # K14 in every mode at h = 1024, 8192 and 16384 on 64 and 129 rows
         zr, zi = rn(rows, h), rn(rows, h)
         zc = torch.complex(zr, zi)
-        for inv, tail in ((False, False), (True, False), (True, True)):
-            if inv and (rows != C or m == 32 * N):
-                continue
-            check("cfft_balanced_fused", f"[{rows}, {h}] "
-                  f"{'inverse' if inv else 'forward'}"
-                  f"{' tail' if tail else ''}",
-                  lambda: FF.cfft_balanced_fused(zr, zi, h, inverse=inv,
-                                                 tail_only=tail),
-                  lambda: FF.cfft_balanced_fused_plain(zr, zi, h, inverse=inv,
-                                                       tail_only=tail),
-                  (2 * _nbytes(zr, zi), flops) if main and not inv else None,
-                  lambda: torch.fft.fft(zc), tail_shape and not inv)
+        for inv, tail in ((False, False), (True, False), (True, True),
+                          (False, True)):
+            cost = (2 * _nbytes(zr, zi), flops)
+            ms = check("cfft_balanced_fused", f"[{rows}, {h}] "
+                       f"{'inverse' if inv else 'forward'}"
+                       f"{' tail' if tail else ''}",
+                       lambda: FF.cfft_balanced_fused(zr, zi, h, inverse=inv,
+                                                      tail_only=tail),
+                       lambda: FF.cfft_balanced_fused_plain(
+                           zr, zi, h, inverse=inv, tail_only=tail),
+                       cost if main and not (inv or tail) else None,
+                       lambda: torch.fft.fft(zc),
+                       tail_shape and not (inv or tail))
+            if ms is not None:
+                bound, by = _bound(*cost)
+                extra["cfft_balanced_fused"] = {
+                    "shape": f"[{rows}, {h}] forward", "ms": ms[0],
+                    "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound,
+                    "bound_by": by}
+    return extra
 
 
 def check_quantizer():
@@ -1434,9 +1471,11 @@ def main():
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
+        if "also" in k:  # the same kernel timed at a second shape
+            rows[-1]["also"] = k["also"]
     import torch
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"card": CARD, "kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

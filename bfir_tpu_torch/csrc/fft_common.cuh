@@ -1,8 +1,9 @@
 // Device helpers shared by the FFT-family kernels (csrc/fft_family.cu,
 // csrc/irfft_hc_tail.cu): the bit-reverse index, radix-2 and radix-4
 // decimation-in-time stages over a sequence in shared memory and the
-// real-packing tangle and untangle (K15-K18), and the register-radix,
-// self-sorting core of K4 and K14 (namespace core, below).
+// real-packing tangle of the inverse routes (K4, K16, K17), and the
+// register-radix, self-sorting core of K4, K14, K15 and K18 (namespace
+// core, below).
 //
 // Conventions. A sequence of complex points is float2 (re, im). Twiddles
 // come from one table per transform length: tw[t] = e^{-2 pi i t / tlen}
@@ -137,33 +138,14 @@ __device__ __forceinline__ float2 tangle(const float* __restrict__ hr,
   return make_float2(ar - ei, ai + er);
 }
 
-// Halfcomplex lane k of the real spectrum X from the spectrum Z (natural
-// order, in shared memory) of the packed length-h sequence:
-// X[k] = A + W B with A = (Z[k] + Z*[h-k]) / 2, B = -i (Z[k] - Z*[h-k]) / 2,
-// W = tw2h[k] = e^{-2 pi i k / 2h}; lane 0 of the im plane carries
-// Nyquist.re = Re Z0 - Im Z0. The untangle and hc pack of the forward
-// routes; returns (hr[k], hi[k]).
-__device__ __forceinline__ float2 untangle(const float2* z, int k, int h,
-                                           const float2* __restrict__ tw2h) {
-  const float2 p = z[k];
-  const float2 q = z[(h - k) & (h - 1)];
-  const float ar = 0.5f * (p.x + q.x);
-  const float ai = 0.5f * (p.y - q.y);
-  const float br = 0.5f * (p.y + q.y);
-  const float bi = -0.5f * (p.x - q.x);
-  const float2 w = __ldg(tw2h + k);
-  const float xr = ar + w.x * br - w.y * bi;
-  const float xi = ai + w.x * bi + w.y * br;
-  return make_float2(xr, k ? xi : p.x - p.y);
-}
-
 // ---------------------------------------------------------------------------
-// The register-radix, self-sorting core of K4 (csrc/irfft_hc_tail.cu) and
-// K14 (cfft_balanced_kernel in csrc/fft_family.cu): the length-h complex
-// FFT of one row, h = 2^L in [1024, 16384], by a block of T = h / PTS
+// The register-radix, self-sorting core of K4 (csrc/irfft_hc_tail.cu), K14
+// (cfft_balanced_kernel in csrc/fft_family.cu) and K15/K18 (rfft_hc_kernel
+// there): the length-h complex FFT of one row, h = 2^L in [512, 16384]
+// (K4 and K14 instantiate h >= 1024 only), by a block of T = h / PTS
 // threads that each hold PTS = 8, 16 or 32 points in registers (Shape).
 //
-// Passes. Each pass p has a radix R = 2^kPlan[L-10][p] (8, 16 or 32) and
+// Passes. Each pass p has a radix R = 2^kPlan[L-9][p] (8, 16 or 32) and
 // Ns, the product of the earlier radices. Butterfly j (< h/R) reads points
 // j + r h/R (r < R), multiplies point r by W_{Ns R}^{(j mod Ns) r}, runs
 // the radix-R DFT and writes output k to (j div Ns) Ns R + (j mod Ns) +
@@ -175,20 +157,29 @@ __device__ __forceinline__ float2 untangle(const float2* z, int k, int h,
 // radix-PL DFT over s in registers, multiplies by W_R^{g k1} and finishes
 // with a radix-G DFT across the lanes by shuffles (decimation in
 // frequency), ending with output k1 + PL digit(g). Pass 0 reads from the
-// caller (device memory; K4 tangles as it loads), the last pass writes to
-// the caller straight from registers (j < Ns there, so output k of
-// butterfly j is point j + k Ns); with TAIL, only outputs k >= R/2, points
-// [h/2, h), are written. Between passes the row goes through shared
-// memory: ceil(log_R h) - 1 exchanges, one at h = 1024 (32 x 32: one block
-// barrier), two at h = 2048-16384 (three barriers: after pass 0, and
-// before and after the middle pass's in-place store). One block takes one
-// row, so 64 rows fill 64 SMs.
+// caller (device memory; K4 tangles as it loads, K15/K18 read sample
+// pairs), the last pass hands output point j + k Ns (j < Ns there) to the
+// caller's store straight from registers; with TAIL, only outputs
+// k >= R/2, points [h/2, h), are handed over; with KEEP, the store writes
+// shared memory between two more block barriers, so the caller can pair
+// points that other threads computed (K15/K18's untangle). Between passes
+// the row goes through shared memory: ceil(log_R h) - 1 exchanges, one at
+// h = 512 (32 x 16) and 1024 (32 x 32: one block barrier), two at
+// h = 2048-16384 (three barriers: after pass 0, and before and after the
+// middle pass's in-place store). One block takes one row, so 64 rows fill
+// 64 SMs.
 //
 // Shared memory is conflict-free. The data buffer's slot of logical index
 // i is swz(i): the low nibble XOR the four bits from bit W (log2 min(R0,
 // 2 PTS)) rotated left by 2, which turns every pass's store and load of a
 // half-warp into 16 distinct bank pairs (pass 0 stores with a lane stride
-// of R0; a split butterfly puts two lane groups in a half-warp). Twiddles
+// of R0; a split butterfly puts two lane groups in a half-warp). The
+// output buffer of KEEP has its own map, zslot: natural order, the upper
+// half with bit 3 flipped. A half-warp's mirror points h - k of 16
+// consecutive k straddle two 16-point groups, which swz maps with two
+// different XORs; zslot keeps their low nibbles distinct, and the flip
+// separates the two lane groups of a four-lane last butterfly (one
+// writes the lower half, the other the upper). Twiddles
 // come from a quarter table staged once per block with cp.async,
 // q[qswz(m)] = tw[2m] = W_h^m for m < h/4 (the other quadrants by
 // multiples of -i), from the caller's float64-built table
@@ -202,9 +193,9 @@ __device__ __forceinline__ float2 untangle(const float2* z, int k, int h,
 // ---------------------------------------------------------------------------
 namespace core {
 
-// log2 of each pass's radix by L - 10 (h = 1024 .. 16384); 0: no pass
-constexpr int kPlan[5][3] = {{5, 5, 0}, {4, 4, 3}, {4, 4, 4}, {5, 4, 4},
-                             {5, 5, 4}};
+// log2 of each pass's radix by L - 9 (h = 512 .. 16384); 0: no pass
+constexpr int kPlan[6][3] = {{5, 4, 0}, {5, 5, 0}, {4, 4, 3},
+                             {4, 4, 4}, {5, 4, 4}, {5, 5, 4}};
 
 // A transform of h = 2^L_ points by h / PTS_ threads, PTS_ = 8, 16 or
 // 32 points each.
@@ -214,12 +205,13 @@ struct Shape {
   static constexpr int H = 1 << L;
   static constexpr int PTS = PTS_;              // points a thread holds
   static constexpr int T = H / PTS;             // threads: one row a block
-  static constexpr int NP = kPlan[L - 10][2] ? 3 : 2;
+  static constexpr int NP = kPlan[L - 9][2] ? 3 : 2;
   // swizzle window: log2 min(pass 0's radix, 2 PTS)
-  static constexpr int W = kPlan[L - 10][0] < (PTS == 8 ? 4 : 5)
-                               ? kPlan[L - 10][0]
+  static constexpr int W = kPlan[L - 9][0] < (PTS == 8 ? 4 : 5)
+                               ? kPlan[L - 9][0]
                                : (PTS == 8 ? 4 : 5);
   static_assert(PTS == 8 || PTS == 16 || PTS == 32, "8, 16 or 32 points");
+  static_assert(T <= 1024, "at most 1024 threads a block");
   // shared memory: the row's buffer, then the quarter table
   static constexpr int SMEM = (H + H / 4) * static_cast<int>(sizeof(float2));
 };
@@ -227,7 +219,7 @@ struct Shape {
 template <class Sh, int P>
 struct Pass {
   static constexpr int L = Sh::L;
-  static constexpr int LR = kPlan[L - 10][P];
+  static constexpr int LR = kPlan[L - 9][P];
   static constexpr int R = 1 << LR;
   static constexpr int PTS = Sh::PTS;
   static constexpr int G = R > PTS ? R / PTS : 1;  // lanes a butterfly
@@ -235,8 +227,8 @@ struct Pass {
   static constexpr int PL = R / G;     // its points a lane
   static constexpr int B = PTS / PL;   // butterflies a thread
   static constexpr int LNS = P == 0 ? 0
-                             : P == 1 ? kPlan[L - 10][0]
-                                      : kPlan[L - 10][0] + kPlan[L - 10][1];
+                             : P == 1 ? kPlan[L - 9][0]
+                                      : kPlan[L - 9][0] + kPlan[L - 9][1];
   static constexpr int NS = 1 << LNS;
   static constexpr int LU = L - LNS - LR;  // twiddle unit h / (Ns R)
   static_assert(G <= 4, "a butterfly spans at most four lane groups");
@@ -271,6 +263,13 @@ template <int W>
 __device__ __forceinline__ int swz(int i) {
   const int n = (i >> W) & 15;
   return i ^ (((n << 2) | (n >> 2)) & 15);
+}
+
+// slot of point i of a KEEP output buffer (h = 2^L): natural order, bit 3
+// flipped in the upper half
+template <int L>
+__device__ __forceinline__ int zslot(int i) {
+  return i ^ ((i >> (L - 1)) << 3);
 }
 
 __device__ __forceinline__ int qswz(int m) {
@@ -480,8 +479,11 @@ __device__ __forceinline__ void store_smem(const float2* v, float2* z, int t) {
 // slots of shared memory; q: the quarter table, whose copies the block
 // has started (stage_quarter) before the call; t: the thread's index,
 // < T. load(k) -> float2 gives input point k; store(k, v) takes output
-// point k (k >= h/2 only, with TAIL).
-template <class Sh, bool INV, bool TAIL, class Load, class Store>
+// point k (k >= h/2 only, with TAIL). With KEEP, store writes shared
+// memory (z itself, say): every thread's last-pass loads are done before
+// the first store, and every store before run returns.
+template <class Sh, bool INV, bool TAIL, bool KEEP = false, class Load,
+          class Store>
 __device__ __forceinline__ void run(float2* z, const float2* q, int t,
                                     Load load, Store store) {
   constexpr int LAST = Sh::NP - 1;
@@ -512,6 +514,7 @@ __device__ __forceinline__ void run(float2* z, const float2* q, int t,
   load_smem<Sh, LAST>(v, z, t);
   twiddles<Sh, LAST, INV>(v, q, t);
   butterflies<Sh, LAST, INV>(v, t);
+  if constexpr (KEEP) __syncthreads();
   const int g = lane_digit<X::G>(group_lane<Sh, LAST>(t));
 #pragma unroll
   for (int b = 0; b < X::B; ++b) {
@@ -522,24 +525,29 @@ __device__ __forceinline__ void run(float2* z, const float2* q, int t,
       if (!TAIL || k >= X::R / 2) store(j + k * X::NS, v[b * X::PL + s]);
     }
   }
+  if constexpr (KEEP) __syncthreads();
 }
 
-// Launch `Kernel` (whose arguments follow) on `rows` rows of shape Sh,
-// one block a row. The kernel's dynamic shared-memory limit is raised once per
-// device, not on every launch.
-template <auto Kernel, class Sh, class... Args>
-cudaError_t launch_rows(int rows, cudaStream_t stream, Args... args) {
+// Raise `Kernel`'s dynamic shared-memory limit to `bytes` once per device,
+// not on every launch.
+template <auto Kernel>
+cudaError_t raise_smem_once(int bytes) {
   static unsigned ready = 0;  // devices whose attribute is set
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (ready >> dev & 1u)) return e;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) ready |= 1u << dev;
+  return e;
+}
+
+// Launch `Kernel` (whose arguments follow) on `rows` rows of shape Sh,
+// one block a row.
+template <auto Kernel, class Sh, class... Args>
+cudaError_t launch_rows(int rows, cudaStream_t stream, Args... args) {
+  const cudaError_t e = raise_smem_once<Kernel>(Sh::SMEM);
   if (e != cudaSuccess) return e;
-  if (!(ready >> dev & 1u)) {
-    e = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Sh::SMEM);
-    if (e != cudaSuccess) return e;
-    ready |= 1u << dev;
-  }
   Kernel<<<rows, Sh::T, Sh::SMEM, stream>>>(args...);
   return cudaGetLastError();
 }

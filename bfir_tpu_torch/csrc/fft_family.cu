@@ -8,16 +8,18 @@
 //                        ::rfft_split_hc_balanced: the length-h complex FFT
 //                        of split planes, forward or inverse (with 1/h), in
 //                        natural order, optionally only outputs [h/2, h).
-//   K15 rfft_hc_r4       replaces fft_fused.py::rfft_hc_fused (:148): rfft ->
-//                        halfcomplex planes, radix-4.
+//   K15 rfft_hc          replaces fft_fused.py::rfft_hc_fused (:148): rfft ->
+//                        halfcomplex planes.
+//   K18 rfft_hc          replaces bfir_tpu/kernels/fft_pallas.py::
+//                        rfft_hc_pallas (:303): the same function as K15, so
+//                        the same kernel (the TPU kernels differ only in how
+//                        they feed the MXU).
 //   K16 irfft_tail_dif   replaces fft_fused.py::irfft_hc_tail_fused (:274):
 //                        halfcomplex planes -> samples [n/2, n) of the
 //                        inverse, radix-4 decimation in frequency.
-//   K17 irfft_tail_4step replaces bfir_tpu/kernels/fft_pallas.py::
-//                        irfft_hc_tail_pallas (:206): the same function as
-//                        K16, as an inverse four-step.
-//   K18 rfft_hc_r2       replaces fft_pallas.py::rfft_hc_pallas (:303): the
-//                        same function as K15, radix-2.
+//   K17 irfft_tail_4step replaces fft_pallas.py::irfft_hc_tail_pallas
+//                        (:206): the same function as K16, as an inverse
+//                        four-step.
 //
 // The real transforms use the real-packing route of the reference: the
 // length-n real sequence x is the length-h = n/2 complex sequence
@@ -29,25 +31,28 @@
 // 1024) a call moves 1 MB, 0.3 us at 3.35 TB/s, and does 5 h log2 h = 51
 // kflop a row, 0.05 us at 67 TFLOP/s; at the tail shape ([64, 16384], h =
 // 8192) 8 MB and 0.5 Mflop a row. Neither memory nor arithmetic bounds
-// them: the passes of a row through shared memory and the barriers between
-// the stages do, and 64 rows are 64 blocks on 132 SMs.
+// them: the latency of a row's passes (dependent loads, barriers, the
+// exchanges through shared memory) does, and 64 rows are 64 blocks on 132
+// SMs.
 //
-// Design, against that (K15-K18; K14 below): one block per row keeps the
-// whole sequence in dynamic shared memory (8 h bytes, 128 KB at the
-// h = 16384 limit, above the 48 KB static limit, so each launch raises the
-// kernel's MaxDynamicSharedMemorySize first); the block is sized to a
-// stage's work, not fixed at 1024 threads. The decompositions differ in how
-// many block-wide barriers they need, which is what the family measures:
-//   - K18 (radix-2): log2 h stages, 10 barriers at h = 1024;
-//   - K15 (radix-4): log4 h stages, 5 at h = 1024 (6 + 1 at h = 8192);
-//   - K14 (redesigned): the register-radix, self-sorting core of
-//     fft_common.cuh (bfir::fft::core), 16 points a thread (32 at
-//     h = 8192): butterflies in registers, a radix-32 one over two lane
-//     groups with shuffles, Stockham passes through a swizzled, conflict-free
-//     buffer, one block barrier at h = 1024 (32 x 32) and three at
-//     h = 8192 (32 x 16 x 16), loads from and stores to device memory
-//     straight from registers; its shared-memory size is raised once per
-//     size and device, not on every launch;
+// Design. K14, K15 and K18 run on the register-radix, self-sorting core
+// of fft_common.cuh (bfir::fft::core): points in registers, butterflies
+// of radix 8-32 there (a radix-32 one over two lane groups with
+// shuffles), Stockham passes through a swizzled, conflict-free buffer, one
+// block barrier at h <= 1024 and three above, the twiddles from a quarter
+// table staged by cp.async; one block a row, whose shared-memory size is
+// raised once per size and device, not on every launch.
+//   - K14 loads split planes and stores natural-order planes from
+//     registers;
+//   - K15/K18 load sample pair k as one coalesced float2 (no bit
+//     reversal), keep Z in shared memory (core::run's KEEP) and untangle
+//     in pairs: a thread reads Z[k] and Z[h-k] and writes hc lanes k and
+//     h - k (X[h-k] = conj(A - W B), the mirror of X[k] = A + W B), so
+//     every point of Z is read once, with W = tw[k] read coalesced from
+//     the caller's table; k = 0 takes Z[h/2] for its mirror and writes
+//     lanes 0 and h/2.
+// K16 and K17 run stages over a row in shared memory (tw read from
+// device memory per butterfly, bank conflicts in the strided stages):
 //   - K16 (radix-4 DIF): the tangle and the radix-4 butterflies of the
 //     four contiguous spectrum quarters in one pass, then four length-h/4
 //     inverse sub-transforms whose last radix-4 stage computes only the
@@ -56,12 +61,10 @@
 //     subsequences apart, four length-h/4 radix-2 sub-transforms run side
 //     by side, and the last radix-4 combine, twiddle folded in, computes
 //     only the outputs i2 in {2, 3}: half of its butterflies.
-// The loads of the forward kernels are 8-byte float2 reads of sample pairs
-// into bit-reversed positions; the inverse kernels read lane-padded planes
-// through their row stride. Twiddles come from one table per length,
-// tw[t] = e^{-2 pi i t / 2h} for t < 2h, built in float64 and rounded once to
-// float32. Shared-memory bank conflicts of K15-K18's strided stages are not
-// avoided yet: a correct kernel first.
+// Their blocks are sized to a stage's work (at most 1024 threads), and
+// their shared-memory limit is raised once per kernel and device. Twiddles
+// come from one table per length, tw[t] = e^{-2 pi i t / 2h} for t < 2h,
+// built in float64 and rounded once to float32.
 
 #include <cuda_runtime.h>
 
@@ -82,65 +85,6 @@ int log2_of(int v) {
 
 int clamp_threads(int work) {
   return work < 128 ? 128 : (work > 1024 ? 1024 : work);
-}
-
-// Forward routes: a row of 2h real samples as h float2 pairs into
-// bit-reversed positions of z.
-__device__ __forceinline__ void load_pairs_bitrev(const float* __restrict__ x,
-                                                  float2* z, int h,
-                                                  int log2h) {
-  const float2* row =
-      reinterpret_cast<const float2*>(x + static_cast<long long>(blockIdx.x) * 2 * h);
-  for (int j = threadIdx.x; j < h; j += blockDim.x)
-    z[F::bitrev(j, log2h)] = __ldg(row + j);
-}
-
-// Forward routes: the untangle and hc pack of Z (natural order in z).
-__device__ __forceinline__ void store_hc(const float2* z, float* __restrict__ hr,
-                                         float* __restrict__ hi, int h,
-                                         const float2* __restrict__ tw) {
-  const long long off = static_cast<long long>(blockIdx.x) * h;
-  for (int k = threadIdx.x; k < h; k += blockDim.x) {
-    const float2 v = F::untangle(z, k, h, tw);
-    hr[off + k] = v.x;
-    hi[off + k] = v.y;
-  }
-}
-
-// K18: radix-2 DIT forward, log2 h stages.
-__global__ void __launch_bounds__(1024)
-    rfft_hc_r2_kernel(const float* __restrict__ x, float* __restrict__ hr,
-                      float* __restrict__ hi, const float2* __restrict__ tw,
-                      int h, int log2h) {
-  extern __shared__ float2 z[];
-  load_pairs_bitrev(x, z, h, log2h);
-  __syncthreads();
-  for (int half = 1; half < h; half <<= 1) {
-    F::radix2_stage(z, h, 0, half, tw, 2 * h, false);
-    __syncthreads();
-  }
-  store_hc(z, hr, hi, h, tw);
-}
-
-// K15: radix-4 DIT forward (one radix-2 stage first when log2 h is odd).
-__global__ void __launch_bounds__(1024)
-    rfft_hc_r4_kernel(const float* __restrict__ x, float* __restrict__ hr,
-                      float* __restrict__ hi, const float2* __restrict__ tw,
-                      int h, int log2h) {
-  extern __shared__ float2 z[];
-  load_pairs_bitrev(x, z, h, log2h);
-  __syncthreads();
-  int quarter = 1;
-  if (log2h & 1) {
-    F::radix2_stage(z, h, 0, 1, tw, 2 * h, false);
-    __syncthreads();
-    quarter = 2;
-  }
-  for (; quarter < h; quarter <<= 2) {
-    F::radix4_stage(z, h, quarter, tw, 2 * h, false, false);
-    __syncthreads();
-  }
-  store_hc(z, hr, hi, h, tw);
 }
 
 // K16: radix-4 DIF inverse of the tangled spectrum, tail outputs only.
@@ -275,16 +219,72 @@ int launch_cfft_h(const float* zr, const float* zi, float* o_r, float* o_i,
   }
 }
 
+// K15/K18: rfft of rows of 2h samples -> halfcomplex planes on the core.
+// Pass 0 loads sample pair k, z[k] = x[2k] + i x[2k+1], as one float2; the
+// core leaves Z in shared memory (zslot order); then thread t untangles
+// the pairs (k, h - k) for k = t + b T < h/2, (0, h/2) for k = 0:
+// A = (Z[k] + Z*[h-k]) / 2, B = -i (Z[k] - Z*[h-k]) / 2, W = tw[k] =
+// e^{-2 pi i k / 2h}; X[k] = A + W B, X[h-k] = conj(A - W B); lane 0 =
+// (Re Z0 + Im Z0, Re Z0 - Im Z0), lane h/2 = conj(Z[h/2]). A thread issues
+// all its loads before its math and selects, not branches, for k = 0, so
+// its pairs wait on one load latency, not one each (a branch per pair
+// measured 1.2 us slower at h = 1024).
+template <class Sh>
+__global__ void __launch_bounds__(Sh::T)
+    rfft_hc_kernel(const float* __restrict__ x, float* __restrict__ hr,
+                   float* __restrict__ hi, const float2* __restrict__ tw) {
+  extern __shared__ float2 smem[];
+  float2* q = smem + Sh::H;
+  C::stage_quarter<Sh::L>(q, tw);
+  const long long row = blockIdx.x;
+  const float2* pairs = reinterpret_cast<const float2*>(x) + row * Sh::H;
+  C::run<Sh, false, false, true>(
+      smem, q, threadIdx.x, [&](int k) { return __ldg(pairs + k); },
+      [&](int k, float2 v) { smem[C::zslot<Sh::L>(k)] = v; });
+  float* re = hr + row * Sh::H;
+  float* im = hi + row * Sh::H;
+  constexpr int kPairs = Sh::PTS / 2;  // pairs a thread
+  float2 p[kPairs], m[kPairs], w[kPairs];
+#pragma unroll
+  for (int b = 0; b < kPairs; ++b) {
+    const int k = threadIdx.x + b * Sh::T;
+    const bool dc = b == 0 && k == 0;  // lanes 0 and h/2
+    p[b] = smem[C::zslot<Sh::L>(k)];
+    m[b] = smem[C::zslot<Sh::L>(dc ? Sh::H / 2 : Sh::H - k)];
+    w[b] = __ldg(tw + k);
+  }
+#pragma unroll
+  for (int b = 0; b < kPairs; ++b) {
+    const int k = threadIdx.x + b * Sh::T;
+    const float ar = 0.5f * (p[b].x + m[b].x);
+    const float ai = 0.5f * (p[b].y - m[b].y);
+    const float br = 0.5f * (p[b].y + m[b].y);
+    const float bi = -0.5f * (p[b].x - m[b].x);
+    const float cr = w[b].x * br - w[b].y * bi;  // W B
+    const float ci = w[b].x * bi + w[b].y * br;
+    const bool dc = b == 0 && k == 0;
+    re[k] = dc ? p[b].x + p[b].y : ar + cr;
+    im[k] = dc ? p[b].x - p[b].y : ai + ci;
+    const int k2 = dc ? Sh::H / 2 : Sh::H - k;
+    re[k2] = dc ? m[b].x : ar - cr;
+    im[k2] = dc ? -m[b].y : ci - ai;
+  }
+}
+
+// points a thread of K15/K18 by log2 h: 16, and 32 (half the threads) at
+// h = 16384, the faster of 8, 16 and 32 at each h on the card (PERF.md)
+constexpr int rfft_points(int L) { return L == 14 ? 32 : 16; }
+
+template <int L, class Sh = C::Shape<L, rfft_points(L)>>
+int launch_rfft(const float* x, float* hr, float* hi, const float2* tw,
+                int rows, cudaStream_t stream) {
+  return static_cast<int>(C::launch_rows<rfft_hc_kernel<Sh>, Sh>(
+      rows, stream, x, hr, hi, tw));
+}
+
 // h a power of two in [h_min, kMaxH]
 bool bad_h(int h, int h_min) {
   return h < h_min || (h & (h - 1)) || h > kMaxH;
-}
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int h) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              h * static_cast<int>(sizeof(float2)));
 }
 
 }  // namespace
@@ -308,33 +308,23 @@ extern "C" int bfir_cfft_balanced(const float* zr, const float* zi,
   return fn(zr, zi, out_r, out_i, t, rows, h, s);
 }
 
-// K15 (radix4 = 1) and K18 (radix4 = 0). x: [rows, 2h] contiguous, 8-byte
-// aligned; hr, hi: [rows, h].
-static int launch_rfft_hc(const float* x, float* hr, float* hi,
-                          const float* tw, int rows, int h, bool radix4,
-                          void* stream) {
-  if (rows < 1 || bad_h(h, 512) || reinterpret_cast<size_t>(x) % 8)
+// K15 and K18. x: [rows, 2h] contiguous, 8-byte aligned; hr, hi:
+// [rows, h]; h a power of two in [512, 16384].
+extern "C" int bfir_rfft_hc(const float* x, float* hr, float* hi,
+                            const float* tw, int rows, int h, void* stream) {
+  if (rows < 1 || reinterpret_cast<size_t>(x) % 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = radix4 ? rfft_hc_r4_kernel : rfft_hc_r2_kernel;
-  cudaError_t e = prepare(kernel, h);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = clamp_threads(radix4 ? h >> 2 : h >> 1);
-  kernel<<<rows, threads, h * sizeof(float2),
-           static_cast<cudaStream_t>(stream)>>>(
-      x, hr, hi, reinterpret_cast<const float2*>(tw), h, log2_of(h));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int bfir_rfft_hc_r4(const float* x, float* hr, float* hi,
-                               const float* tw, int rows, int h,
-                               void* stream) {
-  return launch_rfft_hc(x, hr, hi, tw, rows, h, true, stream);
-}
-
-extern "C" int bfir_rfft_hc_r2(const float* x, float* hr, float* hi,
-                               const float* tw, int rows, int h,
-                               void* stream) {
-  return launch_rfft_hc(x, hr, hi, tw, rows, h, false, stream);
+  const auto* t = reinterpret_cast<const float2*>(tw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (h) {
+    case 512: return launch_rfft<9>(x, hr, hi, t, rows, s);
+    case 1024: return launch_rfft<10>(x, hr, hi, t, rows, s);
+    case 2048: return launch_rfft<11>(x, hr, hi, t, rows, s);
+    case 4096: return launch_rfft<12>(x, hr, hi, t, rows, s);
+    case 8192: return launch_rfft<13>(x, hr, hi, t, rows, s);
+    case 16384: return launch_rfft<14>(x, hr, hi, t, rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K16 (dif = 1, h >= 1024) and K17 (dif = 0, h >= 512). hr, hi: [rows,
@@ -345,7 +335,10 @@ static int launch_irfft_tail(const float* hr, const float* hi,
   if (rows < 1 || bad_h(h, dif ? 1024 : 512) || in_stride < h)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = dif ? irfft_tail_dif_kernel : irfft_tail_4step_kernel;
-  cudaError_t e = prepare(kernel, h);
+  // the limit is raised to the largest row, kMaxH points, once
+  constexpr int kBytes = kMaxH * static_cast<int>(sizeof(float2));
+  cudaError_t e = dif ? C::raise_smem_once<irfft_tail_dif_kernel>(kBytes)
+                      : C::raise_smem_once<irfft_tail_4step_kernel>(kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int threads = clamp_threads(dif ? h >> 2 : h >> 1);
   kernel<<<rows, threads, h * sizeof(float2),

@@ -12,13 +12,15 @@
   register-radix core as K4; ``rfft_split_hc_balanced(x, n=None)`` wraps
   it in the reference's deinterleave and untangle, kept in PyTorch around
   the kernel as the reference keeps them in XLA.
-- ``rfft_hc_fused(x, n=None)`` (K15): rfft -> halfcomplex planes by radix-4
-  passes.
+- ``rfft_hc_fused(x, n=None)`` (K15): rfft -> halfcomplex planes on the
+  same register-radix core, with the untangle in pairs (k, h - k) after
+  it; the kernel is K18's (``kernels/fft_pallas.rfft_hc_pallas``), which
+  computes the same function.
 - ``irfft_hc_tail_fused(hr, hi, n)`` (K16): K4's function as a radix-4
   decimation in frequency with the tail folded into the sub-transforms.
 
-K14-K16 live in ``csrc/fft_family.cu``; K4 and K14 share the core in
-``csrc/fft_common.cuh`` (``tests/test_torch_fft_core.py`` models it).
+K14-K16 live in ``csrc/fft_family.cu``; K4, K14 and K15 share the core
+in ``csrc/fft_common.cuh`` (``tests/test_torch_fft_core.py`` models it).
 Each kernel computes its transform in its own body; the plain version
 beside each wrapper runs ``torch.fft`` on CPU tensors (float32 or
 float64), and CUDA tensors (float32) launch the kernel or raise. The TPU
@@ -229,7 +231,7 @@ def rfft_hc_fused(x: torch.Tensor, n: int | None = None):
     _check_dtype(x, "x")
     if x.device.type == "cpu":
         return rfft_hc_fused_plain(x, m)
-    return launch_rfft_hc(x, m, "bfir_rfft_hc_r4", rfft_hc_fused)
+    return launch_rfft_hc(x, m, rfft_hc_fused)
 
 
 def irfft_hc_tail_fused_plain(hr: torch.Tensor, hi: torch.Tensor,

@@ -5,9 +5,11 @@ real FFT to halfcomplex planes and its overlap-save inverse tail, each one
 kernel that keeps a row's whole transform on chip.
 
 - ``rfft_hc_pallas(x, n=None)`` (K18): rfft over the last axis -> (hr, hi),
-  each ``[..., n/2]``, lane 0 = (DC.re, Nyquist.re). CUDA kernel: radix-2
-  stages over the packed sequence z[j] = x[2j] + i x[2j+1], then the
-  untangle and hc pack (``csrc/fft_family.cu``).
+  each ``[..., n/2]``, lane 0 = (DC.re, Nyquist.re). CUDA kernel: the
+  register-radix core (``csrc/fft_common.cuh``) over the packed sequence
+  z[j] = x[2j] + i x[2j+1], then the untangle and hc pack in pairs
+  (k, h - k) (``rfft_hc_kernel`` in ``csrc/fft_family.cu``, shared with
+  K15, which computes the same function).
 - ``irfft_hc_tail_pallas(hr, hi, n)`` (K17): samples [n/2, n) of the
   inverse of halfcomplex planes ``[..., >= n/2]`` (lane padding ignored).
   CUDA kernel: the tangle, then the inverse four-step with the last
@@ -100,9 +102,10 @@ def _rows_with_stride(hr: torch.Tensor, hi: torch.Tensor, h: int):
     return hr2, hi2, hr2.stride(0) if hr2.shape[0] > 1 else h
 
 
-def launch_rfft_hc(x: torch.Tensor, m: int, entry: str, wrapper):
-    """Run the forward kernel ``entry`` (K15 or K18) of ``wrapper`` on CUDA
-    rows of x cut or padded to m -> (hr, hi) [..., m/2]."""
+def launch_rfft_hc(x: torch.Tensor, m: int, wrapper):
+    """Run the forward kernel of ``wrapper`` (K15 or K18: one kernel, each
+    wrapper counting its own launches) on CUDA rows of x cut or padded to
+    m -> (hr, hi) [..., m/2]."""
     h = m // 2
     _check_cuda(h, x.device, x)
     batch = x.shape[:-1]
@@ -116,9 +119,9 @@ def launch_rfft_hc(x: torch.Tensor, m: int, entry: str, wrapper):
         tw = _device_table(h, x.device)
         lib = cuda_lib.load()
         with torch.cuda.device(x.device):
-            err = getattr(lib, entry)(x2.data_ptr(), hr.data_ptr(),
-                                      hi.data_ptr(), tw.data_ptr(), rows, h,
-                                      cuda_lib.stream_of(hr))
+            err = lib.bfir_rfft_hc(x2.data_ptr(), hr.data_ptr(),
+                                   hi.data_ptr(), tw.data_ptr(), rows, h,
+                                   cuda_lib.stream_of(hr))
         cuda_lib.check(err, wrapper.__name__)
         wrapper.launches += 1
     return hr.reshape(*batch, h), hi.reshape(*batch, h)
@@ -161,7 +164,7 @@ def rfft_hc_pallas(x: torch.Tensor, n: int | None = None):
     _check_dtype(x, "x")
     if x.device.type == "cpu":
         return rfft_hc_pallas_plain(x, m)
-    return launch_rfft_hc(x, m, "bfir_rfft_hc_r2", rfft_hc_pallas)
+    return launch_rfft_hc(x, m, rfft_hc_pallas)
 
 
 def irfft_hc_tail_pallas_plain(hr: torch.Tensor, hi: torch.Tensor,

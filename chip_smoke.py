@@ -64,16 +64,18 @@ flagship: K10 (k = 1, 4, 32) and K11 on the packed ring and coefficients
 of K8's check, K12 and K13 on hc planes [128, 128, 1024] (K12 also with a
 zero-padded basis and at Hp = 2048, untimed; K13's ring bit for bit), and
 the FFT family K14-K18 timed at session G's shape [64, 2048] (h = 1024)
-beside ``torch.fft`` and at [64, 16384] (h = 8192), at h = 16384 for K14,
-K15 and K16, on 129 rows, K14 in every mode (forward, inverse, each
-tail-only) at h = 1024, 8192 and 16384 on 64 and 129 rows, and K16/K17 on
-lane-padded planes (h + 128 lanes).
+beside ``torch.fft`` and at [64, 16384] (h = 8192): K15 and K18 at
+h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
+(forward, inverse, each tail-only) at h = 1024, 8192 and 16384 on 64 and
+129 rows, K16 and K17 at h = 1024 and 8192 (also on lane-padded planes,
+h + 128 lanes) and K16 at h = 16384.
 
 The launch counters are zeroed just before each path (sessions A-G, the
 two renders) and read just after it; each path must have launched its
 kernels. The last two lines are a JSON object describing the card
-(``nvidia-smi``'s name and power limit) and the kernels (K14 with its
-times at [64, 8192] forward as well, under "also"), and the
+(``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
+their times at the tail shape as well, under "also": K14 at [64, 8192]
+forward, the others at [64, 16384]), and the
 ``{"ok": true, ...}`` result.
 """
 
@@ -473,12 +475,14 @@ def check_fft_family(run):
     """K14-K18 against their plain versions (``torch.fft``). Timed at the
     shape session G gives them, [64, 2048] (h = 1024), beside the one
     ``torch.fft`` call computing the same function, and at [64, 16384]
-    (h = 8192), logged; checked at h = 16384 for one kernel of each
-    function (K14, K15, K16), on 129 rows, and K16/K17 on lane-padded
-    planes (h + 128 lanes). K14 is checked forward, inverse and both
-    tail-only at h = 1024, 8192 and 16384 on 64 and 129 rows. Bound: bytes
-    in and out once, or 5 h log2 h float32 flops a row. Returns
-    {"cfft_balanced_fused": its times at [64, 8192] forward}."""
+    (h = 8192). K15 and K18 (one kernel on the register-radix core) are
+    checked at h = 512, 1024, 8192 and 16384 on 64 and 129 rows; K14 in
+    every mode (forward, inverse, each tail-only) at h = 1024, 8192 and
+    16384 on 64 and 129 rows; K16 and K17 at h = 1024 and 8192 on 64
+    and 129 rows, on lane-padded planes (h + 128 lanes) on 64 rows, and
+    K16 at h = 16384. Bound: bytes in and out once, or 5 h log2 h float32
+    flops a row. Returns the times at [64, 16384] (K14: [64, 8192]
+    forward) by kernel, for the JSON line's "also"."""
     import torch
 
     from bfir_tpu_torch.kernels import fft_fused as FF
@@ -497,40 +501,48 @@ def check_fft_family(run):
                                 FF.irfft_hc_tail_fused_plain),
         "irfft_hc_tail_pallas": (FP.irfft_hc_tail_pallas,
                                  FP.irfft_hc_tail_pallas_plain)}
-    first = ("rfft_hc_fused", "irfft_hc_tail_fused")  # kernels at h = 16384
 
     extra = {}
 
-    def check(name, variant, kernel, plain, cost, library, tail_shape):
-        """``run``; at the tail shape [64, 16384] also the times, logged
-        (the JSON line keeps session G's shape, and K14 forward's times at
-        [64, 8192] in an extra entry). Returns the times or None."""
-        run(name, variant, kernel, plain, cost, library=library)
-        if tail_shape:
-            ms = _time_pair(name, variant, kernel, plain, library)
-            log(f"kernel {name} [{variant}]: {ms[0] / ms[2]:.2f} x the "
-                "torch.fft call's device time")
-            return ms
-        return None
+    def check(name, variant, kernel, plain, cost, library, at):
+        """``run``, with the call's (bytes, flops) ``cost``; ``at``:
+        "main" at session G's shape (the row's times), "tail" at the tail
+        shape (times logged and kept for the JSON line), else None."""
+        run(name, variant, kernel, plain, cost if at == "main" else None,
+            library=library)
+        if at != "tail":
+            return
+        ms = _time_pair(name, variant, kernel, plain, library)
+        log(f"kernel {name} [{variant}]: {ms[0] / ms[2]:.2f} x the "
+            "torch.fft call's device time")
+        bound, by = _bound(*cost)
+        extra[name] = {"shape": variant, "ms": ms[0], "plain_ms": ms[1],
+                       "library_ms": ms[2], "bound_ms": bound,
+                       "bound_by": by}
+
+    def at(rows, m, timed=True):
+        """"main" at session G's shape, "tail" at [64, 16384], if timed."""
+        shape = {(C, 2 * N): "main", (C, 16 * N): "tail"}.get((rows, m))
+        return shape if timed else None
+
+    for rows in (C, 129):
+        for m in (N, 2 * N, 16 * N, 32 * N):
+            h = m // 2
+            x = rn(rows, m)
+            cost = (2 * _nbytes(x), rows * 5 * h * np.log2(h))
+            for name, (kernel, plain) in forward.items():
+                check(name, f"[{rows}, {m}]", lambda: kernel(x),
+                      lambda: plain(x, m), cost, lambda: torch.fft.rfft(x),
+                      at(rows, m))
 
     shapes = ((C, 2 * N), (C, 16 * N), (129, 2 * N), (C, 32 * N),
               (129, 16 * N), (129, 32 * N))
     for rows, m in shapes:
         h = m // 2
-        main = (rows, m) == (C, 2 * N)  # session G's shape: timed
-        tail_shape = (rows, m) == (C, 16 * N)
         flops = rows * 5 * h * np.log2(h)
         if rows == C or m == 2 * N:
-            x = rn(rows, m)
-            for name, (kernel, plain) in forward.items():
-                if m == 32 * N and name not in first:
-                    continue
-                check(name, f"[{rows}, {m}]", lambda: kernel(x),
-                      lambda: plain(x, m),
-                      (2 * _nbytes(x), flops) if main else None,
-                      lambda: torch.fft.rfft(x), tail_shape)
             for name, (kernel, plain) in inverse.items():
-                if m == 32 * N and name not in first:
+                if m == 32 * N and name != "irfft_hc_tail_fused":
                     continue
                 for lanes in ((h, h + 128) if rows == C and m < 32 * N
                               else (h,)):
@@ -539,35 +551,25 @@ def check_fft_family(run):
                         torch.cat([hr[:, :h], hi[:, :1]], 1),
                         torch.cat([torch.zeros_like(hi[:, :1]), hi[:, 1:h],
                                    torch.zeros_like(hi[:, :1])], 1))
-                    timed = main and lanes == h
                     check(name, f"[{rows}, {lanes}] planes, n {m}",
                           lambda: kernel(hr, hi, m), lambda: plain(hr, hi, m),
-                          (_nbytes(hr, hi) + rows * h * 4, flops) if timed
-                          else None,
+                          (_nbytes(hr, hi) + rows * h * 4, flops),
                           lambda: torch.fft.irfft(spec, n=m)[:, h:],
-                          tail_shape and lanes == h)
+                          at(rows, m, lanes == h))
         # K14 in every mode at h = 1024, 8192 and 16384 on 64 and 129 rows
         zr, zi = rn(rows, h), rn(rows, h)
         zc = torch.complex(zr, zi)
         for inv, tail in ((False, False), (True, False), (True, True),
                           (False, True)):
-            cost = (2 * _nbytes(zr, zi), flops)
-            ms = check("cfft_balanced_fused", f"[{rows}, {h}] "
-                       f"{'inverse' if inv else 'forward'}"
-                       f"{' tail' if tail else ''}",
-                       lambda: FF.cfft_balanced_fused(zr, zi, h, inverse=inv,
-                                                      tail_only=tail),
-                       lambda: FF.cfft_balanced_fused_plain(
-                           zr, zi, h, inverse=inv, tail_only=tail),
-                       cost if main and not (inv or tail) else None,
-                       lambda: torch.fft.fft(zc),
-                       tail_shape and not (inv or tail))
-            if ms is not None:
-                bound, by = _bound(*cost)
-                extra["cfft_balanced_fused"] = {
-                    "shape": f"[{rows}, {h}] forward", "ms": ms[0],
-                    "plain_ms": ms[1], "library_ms": ms[2], "bound_ms": bound,
-                    "bound_by": by}
+            check("cfft_balanced_fused", f"[{rows}, {h}] "
+                  f"{'inverse' if inv else 'forward'}"
+                  f"{' tail' if tail else ''}",
+                  lambda: FF.cfft_balanced_fused(zr, zi, h, inverse=inv,
+                                                 tail_only=tail),
+                  lambda: FF.cfft_balanced_fused_plain(
+                      zr, zi, h, inverse=inv, tail_only=tail),
+                  (2 * _nbytes(zr, zi), flops), lambda: torch.fft.fft(zc),
+                  at(rows, m, not (inv or tail)))
     return extra
 
 

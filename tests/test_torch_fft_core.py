@@ -1,4 +1,4 @@
-"""The register-radix, self-sorting FFT core of K4 and K14
+"""The register-radix, self-sorting FFT core of K4, K14, K15 and K18
 (``bfir_tpu_torch/csrc/fft_common.cuh``, namespace ``bfir::fft::core``),
 modelled in numpy on the CPU, where no CUDA compiler runs.
 
@@ -8,11 +8,15 @@ indices (the quarter table staged from ``_device_table(h)``, powers of two
 loaded and the rest multiplied out), the same in-register radix-R DFT and
 the same tail selection. It is held against ``numpy.fft`` in float64
 (rel 1e-12 x max) and float32 (2e-5 x max, the reference's own bound), for
-the complex transform forward, inverse and inverse-tail (K14) and for K4's
-tangle-on-load inverse tail against ``np.fft.irfft(...)[n/2:]``. A second
-group of tests enumerates every pass's shared-memory accesses per thread
-and asserts that each 16-lane half-warp touches 16 distinct 8-byte bank
-pairs (data) or distinct bank pairs for distinct addresses (twiddles)."""
+the complex transform forward, inverse and inverse-tail (K14), for K4's
+tangle-on-load inverse tail against ``np.fft.irfft(...)[n/2:]`` and for
+the forward real route of K15/K18 (sample pairs loaded, Z kept in shared
+memory, the untangle in pairs (k, h - k)) against ``np.fft.rfft`` packed
+as halfcomplex planes. A second group of tests enumerates every pass's
+shared-memory accesses per thread, the kept output's stores and the
+untangle's reads, and asserts that each 16-lane half-warp touches 16
+distinct 8-byte bank pairs (data) or distinct bank pairs for distinct
+addresses (twiddles)."""
 
 import os
 import re
@@ -26,16 +30,18 @@ from bfir_tpu_torch.kernels import fft_pallas as FP
 
 SRC = os.path.join(os.path.dirname(FF.__file__), os.pardir, "csrc",
                    "fft_common.cuh")
-SIZES = [1024, 2048, 8192, 16384]
+FAMILY = os.path.join(os.path.dirname(SRC), "fft_family.cu")
+SIZES = [512, 1024, 2048, 8192, 16384]
+K4_SIZES = [h for h in SIZES if h >= 1024]  # K4's and K14's domain
 
 
 def _plan_table():
     """log2 radix of each pass by log2 h, from ``core::kPlan``."""
     with open(SRC) as f:
         text = f.read()
-    m = re.search(r"kPlan\[5\]\[3\]\s*=\s*\{(.*?)\};", text, re.S)
+    m = re.search(r"kPlan\[6\]\[3\]\s*=\s*\{(.*?)\};", text, re.S)
     rows = re.findall(r"\{\s*(\d+)\s*,\s*(\d+)\s*,\s*(\d+)\s*\}", m.group(1))
-    return {10 + i: [int(v) for v in row if int(v)]
+    return {9 + i: [int(v) for v in row if int(v)]
             for i, row in enumerate(rows)}
 
 
@@ -46,18 +52,50 @@ def _log2(v):
     return int(v).bit_length() - 1
 
 
-# (h, points a thread) of the kernels' shapes: K14 holds 16 points a
-# thread, 32 at h = 8192; K4 8 at h = 1024 and 16 elsewhere
-SHAPES = [(1024, 16), (2048, 16), (8192, 16), (16384, 16), (1024, 8),
-          (8192, 32)]
-
-
 def k4_points(h):
     return 8 if h == 1024 else 16
 
 
 def k14_points(h):
     return 32 if h == 8192 else 16
+
+
+def _rfft_points_rule():
+    """(log2 h, its points, every other h's points) of ``rfft_points`` in
+    csrc/fft_family.cu, so the model tests the kernel's own rule."""
+    with open(FAMILY) as f:
+        text = f.read()
+    m = re.search(r"constexpr int rfft_points\(int L\)\s*\{\s*return\s+"
+                  r"L\s*==\s*(\d+)\s*\?\s*(\d+)\s*:\s*(\d+)\s*;\s*\}", text)
+    assert m, "rfft_points in fft_family.cu is no longer `L == a ? b : c`"
+    return tuple(int(v) for v in m.groups())
+
+
+RFFT_RULE = _rfft_points_rule()
+
+
+def rfft_points(h):
+    """K15/K18's points a thread (``rfft_points`` in csrc/fft_family.cu)."""
+    lh, pts, other = RFFT_RULE
+    return pts if _log2(h) == lh else other
+
+
+def core_points(h):
+    """The core's shape in the model of the complex transform: K14's, and
+    K15/K18's at h = 512, below K14's domain."""
+    return k14_points(h) if h >= 1024 else rfft_points(h)
+
+
+# (h, points a thread) of the kernels' shapes: K14 holds 16 points a
+# thread, 32 at h = 8192; K4 8 at h = 1024 and 16 elsewhere; K15/K18 as
+# rfft_points, down to h = 512
+SHAPES = sorted({(h, k14_points(h)) for h in K4_SIZES}
+                | {(h, k4_points(h)) for h in K4_SIZES}
+                | {(h, rfft_points(h)) for h in SIZES})
+# every shape the core's forward real route can take: h in [512, 16384],
+# 8, 16 or 32 points a thread, at most 1024 threads
+RFFT_SHAPES = [(1 << lh, pts) for lh in range(9, 15) for pts in (8, 16, 32)
+               if (1 << lh) // pts <= 1024]
 
 
 def window(h, pts):
@@ -253,7 +291,7 @@ def k14_model(z, h, inverse, tail, dtype):
     tw = _table(h, dtype)
     q = _quarter(h, tw)
     zz = z.astype(dtype)
-    y = core_model(lambda k: zz[:, k], h, k14_points(h), q, inverse, tail)
+    y = core_model(lambda k: zz[:, k], h, core_points(h), q, inverse, tail)
     if inverse:
         y = y * np.asarray(1.0 / h, dtype=np.float64 if dtype ==
                            np.complex128 else np.float32)
@@ -290,6 +328,58 @@ def k4_model(hr, hi, h, dtype):
     return out
 
 
+def zslot(i, h):
+    """``core::zslot``: the kept output's slot of point i, natural order
+    with bit 3 flipped in the upper half."""
+    return i ^ ((i >> (_log2(h) - 1)) << 3)
+
+
+def _mirror(k, h):
+    """The untangle's partner of k < h/2: h - k, and h/2 for k = 0."""
+    return np.where(k == 0, h // 2, h - k)
+
+
+def rfft_model(x, h, dtype):
+    """K15/K18 on rows x [rows, 2h]: sample pairs z[k] = x[2k] + i x[2k+1]
+    into the forward core, Z kept in shared memory in zslot order, then
+    the untangle in pairs (k, h - k) with W = tw[k], in the kernel's order
+    of float operations -> halfcomplex planes (hr, hi) [rows, h]."""
+    real = np.float64 if dtype == np.complex128 else np.float32
+    tw = _table(h, dtype)
+    q = _quarter(h, tw)
+    xr = x.astype(real)
+    z = (xr[:, 0::2] + 1j * xr[:, 1::2]).astype(dtype)
+    zn = core_model(lambda k: z[:, k], h, rfft_points(h), q, False, False)
+    buf = np.zeros_like(zn)
+    buf[:, zslot(np.arange(h), h)] = zn            # the KEEP store
+    k = np.arange(h // 2)
+    p = buf[:, zslot(k, h)]
+    m = buf[:, zslot(_mirror(k, h), h)]
+    half = real(0.5)
+    ar, ai = half * (p.real + m.real), half * (p.imag - m.imag)
+    br, bi = half * (p.imag + m.imag), -half * (p.real - m.real)
+    w = tw[k]
+    cr = w.real * br - w.imag * bi
+    ci = w.real * bi + w.imag * br
+    hr = np.empty((x.shape[0], h), real)
+    hi = np.empty_like(hr)
+    hr[:, k[1:]], hi[:, k[1:]] = (ar + cr)[:, 1:], (ai + ci)[:, 1:]
+    hr[:, h - k[1:]], hi[:, h - k[1:]] = (ar - cr)[:, 1:], (ci - ai)[:, 1:]
+    p0, mh = p[:, 0], m[:, 0]
+    hr[:, 0], hi[:, 0] = p0.real + p0.imag, p0.real - p0.imag
+    hr[:, h // 2], hi[:, h // 2] = mh.real, -mh.imag
+    return hr, hi
+
+
+def _hc_planes(x):
+    """np.fft.rfft(x) packed as halfcomplex planes (lane 0 = (DC.re,
+    Nyquist.re))."""
+    h = x.shape[-1] // 2
+    spec = np.fft.rfft(x)
+    return spec.real[:, :h], np.concatenate([spec.real[:, h:h + 1],
+                                             spec.imag[:, 1:h]], 1)
+
+
 def _rel_err(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
@@ -312,7 +402,7 @@ def test_core_model_matches_numpy(h, mode, dtype, rel):
     assert _rel_err(got, ref) <= rel
 
 
-@pytest.mark.parametrize("h", SIZES)
+@pytest.mark.parametrize("h", K4_SIZES)
 @pytest.mark.parametrize("dtype, rel", [(np.complex128, 1e-12),
                                         (np.complex64, 2e-5)],
                          ids=["float64", "float32"])
@@ -335,6 +425,27 @@ def test_k4_tangle_on_load_matches_irfft(h, dtype, rel):
     assert _rel_err(plain, ref) <= 1e-12
 
 
+@pytest.mark.parametrize("h", SIZES)
+@pytest.mark.parametrize("dtype, rel", [(np.complex128, 1e-12),
+                                        (np.complex64, 2e-5)],
+                         ids=["float64", "float32"])
+def test_rfft_pairs_untangle_matches_rfft(h, dtype, rel):
+    """K15/K18: sample pairs loaded as complex points, the forward core
+    with Z left in shared memory, the untangle in pairs (k, h - k) ==
+    np.fft.rfft packed as halfcomplex planes; both plain wrappers agree
+    too."""
+    rng = np.random.default_rng(h + 1)
+    x = rng.standard_normal((3, 2 * h))
+    ref = np.concatenate(_hc_planes(x), 1)
+    got = np.concatenate(rfft_model(x, h, dtype), 1)
+    assert got.shape == ref.shape
+    assert _rel_err(got, ref) <= rel
+    for plain in (FF.rfft_hc_fused_plain, FP.rfft_hc_pallas_plain):
+        pr, pi = plain(torch.from_numpy(x), 2 * h)
+        assert _rel_err(np.concatenate([pr.numpy(), pi.numpy()], 1),
+                        ref) <= 1e-12
+
+
 def _half_warps(lanes):
     """Split the per-thread index array [T, ...] into half-warps of 16
     consecutive threads: [T/16, 16, ...]."""
@@ -353,9 +464,10 @@ def _threads(h, pts, lr):
     return [(t + b * t.size, np.zeros_like(t)) for b in range(b_count)]
 
 
-def _data_accesses(h, pts):
+def _data_accesses(h, pts, keep=False):
     """Every shared-memory data access of the core, by instruction: a list
-    of (what, idx [T] of physical float2 slots, one per thread)."""
+    of (what, idx [T] of physical float2 slots, one per thread); with
+    ``keep``, the last pass's stores of the kept output (zslot) too."""
     s = window(h, pts)
     out = []
     passes = _passes(h)
@@ -373,6 +485,33 @@ def _data_accesses(h, pts):
                 if p < len(passes) - 1:
                     out.append((f"pass {p} store b {b} s {s_}",
                                 swz(d + (s_ + pl * digit) * ns, s)))
+                elif keep:
+                    out.append((f"kept store b {b} s {s_}",
+                                zslot(d + (s_ + pl * digit) * ns, h)))
+    return out
+
+
+def _untangle_reads(h, pts, slot):
+    """The untangle's reads of the kept output, thread t taking k = t + b T
+    < h/2: (what, slot [T]) for Z[k] and for its partner Z[h - k] (Z[h/2]
+    at k = 0), under the slot map ``slot``."""
+    t = np.arange(h // pts)
+    out = []
+    for b in range(pts // 2):
+        k = t + b * t.size
+        out.append((f"untangle b {b} Z[k]", slot(k, h)))
+        out.append((f"untangle b {b} Z[h-k]", slot(_mirror(k, h), h)))
+    return out
+
+
+def _conflicts(accesses):
+    """(what, extra bank-pair wavefronts) of each access that some
+    half-warp serves in more than one."""
+    out = []
+    for what, idx in accesses:
+        extra = sum(16 - len(set(hw.tolist())) for hw in _half_warps(idx) % 16)
+        if extra:
+            out.append((what, extra))
     return out
 
 
@@ -424,15 +563,41 @@ def test_twiddle_maps_are_conflict_free(h, pts):
             assert len({s % 16 for s in slots}) == len(slots), (h, what, hw)
 
 
+@pytest.mark.parametrize("h, pts", RFFT_SHAPES)
+def test_rfft_kept_output_and_untangle_are_conflict_free(h, pts):
+    """K15/K18 at every shape the core can take: the passes, the last
+    pass's stores of the kept output and the untangle's reads of Z[k] and
+    Z[h - k] hit 16 distinct bank pairs in every half-warp; the kept
+    stores fill each of the h slots once and the untangle reads each
+    once; the twiddle loads stay conflict-free. Under the passes' swizzle
+    the partner reads would not: 16 consecutive k have mirrors h - k in
+    two 16-point groups, which swz XORs differently."""
+    data = _data_accesses(h, pts, keep=True)
+    reads = _untangle_reads(h, pts, zslot)
+    assert _conflicts(data) == [] and _conflicts(reads) == []
+    twiddles = _twiddle_accesses(h, pts)
+    assert [w for w, idx in twiddles for hw in _half_warps(idx)
+            if len({s % 16 for s in set(hw.tolist())})
+            != len(set(hw.tolist()))] == []
+    for accesses in ([idx for what, idx in data if "kept" in what],
+                     [idx for _, idx in reads]):
+        assert np.bincount(np.concatenate(accesses), minlength=h).tolist() \
+            == [1] * h
+    swizzled = _untangle_reads(h, pts, lambda i, n: swz(i, window(n, pts)))
+    assert _conflicts(swizzled)
+
+
 def test_plan_barriers_and_radices():
     """Radices 8, 16 or 32 whose product is h; ceil(log_R h) - 1 exchanges
-    through shared memory: one at h = 1024, at most three (block barriers:
-    one after pass 0, two around each middle pass) at h <= 16384."""
+    through shared memory: one at h = 512 and 1024, at most three (block
+    barriers: one after pass 0, two around each middle pass) at
+    h <= 16384; every size from 512 has a plan."""
+    assert sorted(PLAN) == list(range(9, 15))
     for lh, plan in PLAN.items():
         assert sum(plan) == lh
         assert all(3 <= lr <= 5 for lr in plan)
         barriers = 1 + 2 * (len(plan) - 2)
-        assert barriers <= (1 if lh == 10 else 3)
+        assert barriers <= (1 if lh <= 10 else 3)
         assert all(_split(1 << lr, pts)[0] <= 4 for lr in plan
                    for pts in (8, 16))
 

@@ -1,16 +1,14 @@
-// Device helpers shared by the FFT-family kernels (csrc/fft_family.cu,
-// csrc/irfft_hc_tail.cu): the bit-reverse index, radix-2 and radix-4
-// decimation-in-time stages over a sequence in shared memory and the
-// real-packing tangle of the inverse routes (K4, K16, K17), and the
-// register-radix, self-sorting core of K4, K14, K15 and K18 (namespace
-// core, below).
+// Device helpers shared by the FFT kernels (csrc/fft_family.cu,
+// csrc/irfft_hc_tail.cu): complex arithmetic, the real-packing tangle of
+// the inverse tail (K4, K16, K17), and the register-radix, self-sorting
+// core of every FFT kernel of the port, K4 and K14-K18 (namespace core,
+// below).
 //
 // Conventions. A sequence of complex points is float2 (re, im). Twiddles
 // come from one table per transform length: tw[t] = e^{-2 pi i t / tlen}
 // for t < tlen, built in float64 on the host and rounded once to float32;
-// a stage reads tw[t] for the forward sign and its conjugate for the
-// inverse. Every helper loops over its work with a stride of blockDim.x, so
-// the block may be any size; the caller synchronises between stages.
+// a helper reads tw[t] for the forward sign and its conjugate for the
+// inverse.
 
 #pragma once
 
@@ -47,74 +45,6 @@ __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw,
   return inverse ? make_float2(w.x, -w.y) : w;
 }
 
-// k with its low `bits` bits reversed (k < 2^bits)
-__device__ __forceinline__ int bitrev(int k, int bits) {
-  return bits ? static_cast<int>(__brev(static_cast<unsigned>(k)) >>
-                                 (32 - bits))
-              : 0;
-}
-
-// One radix-2 DIT stage, in place, over `stride` interleaved sequences of
-// n / stride points each (point j of sequence c at z[j * stride + c],
-// stride a power of two, 2^slog): combines sub-transforms of `half` points
-// into transforms of 2 half. Inputs in bit-reversed order within each
-// sequence give natural-order outputs after the last stage. Twiddle
-// W_{2 half}^j = tw[j * tlen / (2 half)].
-__device__ __forceinline__ void radix2_stage(float2* z, int n, int slog,
-                                             int half,
-                                             const float2* __restrict__ tw,
-                                             int tlen, bool inverse) {
-  const int step = tlen / (2 * half);
-  const int cmask = (1 << slog) - 1;
-  for (int b = threadIdx.x; b < (n >> 1); b += blockDim.x) {
-    const int c = b & cmask;
-    const int bb = b >> slog;
-    const int j = bb & (half - 1);
-    const int a = ((((bb - j) << 1) | j) << slog) | c;
-    const int a2 = a + (half << slog);
-    const float2 w = twiddle(tw, j * step, inverse);
-    const float2 u = z[a];
-    const float2 v = mul(w, z[a2]);
-    z[a] = add(u, v);
-    z[a2] = sub(u, v);
-  }
-}
-
-// One radix-4 DIT stage, in place, over n points (every sequence a multiple
-// of 4 quarter points long): combines four sub-transforms of `quarter`
-// points into transforms of 4 quarter. After radix-2 stages from
-// bit-reversed input, the four quarters of a block hold the sub-transforms
-// of the points congruent to 0, 2, 1 and 3 mod 4 (a radix-4 stage is two
-// radix-2 stages), so quarters 1 and 2 swap roles here. `upper_only`:
-// compute and write only outputs [2 quarter, 4 quarter) of each block (the
-// upper half of a transform that ends with this stage).
-__device__ __forceinline__ void radix4_stage(float2* z, int n, int quarter,
-                                             const float2* __restrict__ tw,
-                                             int tlen, bool inverse,
-                                             bool upper_only) {
-  const int step = tlen / (4 * quarter);
-  for (int b = threadIdx.x; b < (n >> 2); b += blockDim.x) {
-    const int k = b & (quarter - 1);
-    const int a = ((b - k) << 2) | k;
-    const float2 a0 = z[a];
-    const float2 a2 = mul(twiddle(tw, 2 * k * step, inverse), z[a + quarter]);
-    const float2 a1 =
-        mul(twiddle(tw, k * step, inverse), z[a + 2 * quarter]);
-    const float2 a3 =
-        mul(twiddle(tw, 3 * k * step, inverse), z[a + 3 * quarter]);
-    const float2 t0 = add(a0, a2);
-    const float2 t1 = sub(a0, a2);
-    const float2 t2 = add(a1, a3);
-    const float2 t3 = rot(sub(a1, a3), inverse);
-    if (!upper_only) {
-      z[a] = add(t0, t2);
-      z[a + quarter] = add(t1, t3);
-    }
-    z[a + 2 * quarter] = sub(t0, t2);
-    z[a + 3 * quarter] = sub(t1, t3);
-  }
-}
-
 // Point k of the spectrum Z of the packed length-h complex sequence
 // z[j] = x[2j] + i x[2j+1], from halfcomplex planes (lane 0 = (DC.re,
 // Nyquist.re)) of the length-2h real spectrum X: A = (X[k] + X*[h-k]) / 2,
@@ -139,11 +69,12 @@ __device__ __forceinline__ float2 tangle(const float* __restrict__ hr,
 }
 
 // ---------------------------------------------------------------------------
-// The register-radix, self-sorting core of K4 (csrc/irfft_hc_tail.cu), K14
-// (cfft_balanced_kernel in csrc/fft_family.cu) and K15/K18 (rfft_hc_kernel
-// there): the length-h complex FFT of one row, h = 2^L in [512, 16384]
-// (K4 and K14 instantiate h >= 1024 only), by a block of T = h / PTS
-// threads that each hold PTS = 8, 16 or 32 points in registers (Shape).
+// The register-radix, self-sorting core of K4, K16 and K17 (one kernel,
+// csrc/irfft_hc_tail.cu), K14 (cfft_balanced_kernel in csrc/fft_family.cu)
+// and K15/K18 (rfft_hc_kernel there): the length-h complex FFT of one row,
+// h = 2^L in [512, 16384] (K14 instantiates h >= 1024 only), by a block of
+// T = h / PTS threads that each hold PTS = 8, 16 or 32 points in registers
+// (Shape).
 //
 // Passes. Each pass p has a radix R = 2^kPlan[L-9][p] (8, 16 or 32) and
 // Ns, the product of the earlier radices. Butterfly j (< h/R) reads points
@@ -157,8 +88,8 @@ __device__ __forceinline__ float2 tangle(const float* __restrict__ hr,
 // radix-PL DFT over s in registers, multiplies by W_R^{g k1} and finishes
 // with a radix-G DFT across the lanes by shuffles (decimation in
 // frequency), ending with output k1 + PL digit(g). Pass 0 reads from the
-// caller (device memory; K4 tangles as it loads, K15/K18 read sample
-// pairs), the last pass hands output point j + k Ns (j < Ns there) to the
+// caller (device memory; the inverse tail tangles as it loads, K15/K18
+// read sample pairs), the last pass hands output point j + k Ns (j < Ns there) to the
 // caller's store straight from registers; with TAIL, only outputs
 // k >= R/2, points [h/2, h), are handed over; with KEEP, the store writes
 // shared memory between two more block barriers, so the caller can pair

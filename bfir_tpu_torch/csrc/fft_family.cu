@@ -1,6 +1,7 @@
-// The FFT family for Hopper (sm_90a): kernels K14-K18 of the port.
+// The forward FFTs for Hopper (sm_90a): kernels K14, K15 and K18 of the
+// port.
 //
-// Five kernels, three functions, each transform computed in the kernel's
+// Two kernels, two functions, each transform computed in the kernel's
 // own body (no cuFFT):
 //
 //   K14 cfft_balanced    replaces bfir_tpu/kernels/fft_fused.py::
@@ -14,18 +15,12 @@
 //                        rfft_hc_pallas (:303): the same function as K15, so
 //                        the same kernel (the TPU kernels differ only in how
 //                        they feed the MXU).
-//   K16 irfft_tail_dif   replaces fft_fused.py::irfft_hc_tail_fused (:274):
-//                        halfcomplex planes -> samples [n/2, n) of the
-//                        inverse, radix-4 decimation in frequency.
-//   K17 irfft_tail_4step replaces fft_pallas.py::irfft_hc_tail_pallas
-//                        (:206): the same function as K16, as an inverse
-//                        four-step.
 //
-// The real transforms use the real-packing route of the reference: the
-// length-n real sequence x is the length-h = n/2 complex sequence
-// z[j] = x[2j] + i x[2j+1]; the forward untangles Z into the halfcomplex
-// planes (lane 0 = (DC.re, Nyquist.re)), the inverse tangles the planes
-// into Z first (fft_common.cuh).
+// The inverse tails (K4, K16, K17) are one kernel in csrc/irfft_hc_tail.cu.
+// The forward real transform uses the real-packing route of the reference:
+// the length-n real sequence x is the length-h = n/2 complex sequence
+// z[j] = x[2j] + i x[2j+1], whose spectrum Z is untangled into the
+// halfcomplex planes (lane 0 = (DC.re, Nyquist.re)).
 //
 // What bounds them on the H100: at the streaming shape ([64, 2048], h =
 // 1024) a call moves 1 MB, 0.3 us at 3.35 TB/s, and does 5 h log2 h = 51
@@ -35,13 +30,15 @@
 // exchanges through shared memory) does, and 64 rows are 64 blocks on 132
 // SMs.
 //
-// Design. K14, K15 and K18 run on the register-radix, self-sorting core
-// of fft_common.cuh (bfir::fft::core): points in registers, butterflies
-// of radix 8-32 there (a radix-32 one over two lane groups with
-// shuffles), Stockham passes through a swizzled, conflict-free buffer, one
-// block barrier at h <= 1024 and three above, the twiddles from a quarter
-// table staged by cp.async; one block a row, whose shared-memory size is
-// raised once per size and device, not on every launch.
+// Design. Both run on the register-radix, self-sorting core of
+// fft_common.cuh (bfir::fft::core): points in registers, butterflies of
+// radix 8-32 there (a radix-32 one over two lane groups with shuffles),
+// Stockham passes through a swizzled, conflict-free buffer, one block
+// barrier at h <= 1024 and three above, the twiddles from a quarter table
+// staged by cp.async; one block a row, whose shared-memory size is raised
+// once per size and device, not on every launch. Twiddles come from one
+// table per length, tw[t] = e^{-2 pi i t / 2h} for t < 2h, built in
+// float64 and rounded once to float32.
 //   - K14 loads split planes and stores natural-order planes from
 //     registers;
 //   - K15/K18 load sample pair k as one coalesced float2 (no bit
@@ -51,20 +48,6 @@
 //     every point of Z is read once, with W = tw[k] read coalesced from
 //     the caller's table; k = 0 takes Z[h/2] for its mirror and writes
 //     lanes 0 and h/2.
-// K16 and K17 run stages over a row in shared memory (tw read from
-// device memory per butterfly, bank conflicts in the strided stages):
-//   - K16 (radix-4 DIF): the tangle and the radix-4 butterflies of the
-//     four contiguous spectrum quarters in one pass, then four length-h/4
-//     inverse sub-transforms whose last radix-4 stage computes only the
-//     tail half of its outputs; the re/im interleave is the store index;
-//   - K17 (inverse four-step): the tangle stores the four stride-4
-//     subsequences apart, four length-h/4 radix-2 sub-transforms run side
-//     by side, and the last radix-4 combine, twiddle folded in, computes
-//     only the outputs i2 in {2, 3}: half of its butterflies.
-// Their blocks are sized to a stage's work (at most 1024 threads), and
-// their shared-memory limit is raised once per kernel and device. Twiddles
-// come from one table per length, tw[t] = e^{-2 pi i t / 2h} for t < 2h,
-// built in float64 and rounded once to float32.
 
 #include <cuda_runtime.h>
 
@@ -72,99 +55,7 @@
 
 namespace {
 
-namespace F = bfir::fft;
 namespace C = bfir::fft::core;
-
-constexpr int kMaxH = 16384;  // 128 KB of float2 shared memory
-
-int log2_of(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
-int clamp_threads(int work) {
-  return work < 128 ? 128 : (work > 1024 ? 1024 : work);
-}
-
-// K16: radix-4 DIF inverse of the tangled spectrum, tail outputs only.
-// c[4 i1 + r] = (1/h) IDFT_n1(u_r)[i1], u_r[k1] = e^{+2 pi i r k1 / h}
-// sum_q Z[k1 + q n1] i^{q r}; the tail [h/2, h) is i1 >= n1/2.
-__global__ void __launch_bounds__(1024)
-    irfft_tail_dif_kernel(const float* __restrict__ hr,
-                          const float* __restrict__ hi, long long in_stride,
-                          float* __restrict__ out,
-                          const float2* __restrict__ tw, int h, int log2n1) {
-  extern __shared__ float2 z[];
-  const int n1 = h >> 2;
-  const float* r = hr + blockIdx.x * in_stride;
-  const float* q = hi + blockIdx.x * in_stride;
-  for (int k1 = threadIdx.x; k1 < n1; k1 += blockDim.x) {
-    const float2 z0 = F::tangle(r, q, k1, h, tw);
-    const float2 z1 = F::tangle(r, q, k1 + n1, h, tw);
-    const float2 z2 = F::tangle(r, q, k1 + 2 * n1, h, tw);
-    const float2 z3 = F::tangle(r, q, k1 + 3 * n1, h, tw);
-    const float2 s02 = F::add(z0, z2), d02 = F::sub(z0, z2);
-    const float2 s13 = F::add(z1, z3);
-    const float2 id13 = F::rot(F::sub(z1, z3), true);  // +i (z1 - z3)
-    const int p = F::bitrev(k1, log2n1);
-    z[p] = F::add(s02, s13);
-    z[n1 + p] = F::mul(F::twiddle(tw, 2 * k1, true), F::add(d02, id13));
-    z[2 * n1 + p] = F::mul(F::twiddle(tw, 4 * k1, true), F::sub(s02, s13));
-    z[3 * n1 + p] = F::mul(F::twiddle(tw, 6 * k1, true), F::sub(d02, id13));
-  }
-  __syncthreads();
-  int quarter = 1;
-  if (log2n1 & 1) {
-    F::radix2_stage(z, h, 0, 1, tw, 2 * h, true);
-    __syncthreads();
-    quarter = 2;
-  }
-  for (; quarter < n1; quarter <<= 2) {
-    F::radix4_stage(z, h, quarter, tw, 2 * h, true, 4 * quarter == n1);
-    __syncthreads();
-  }
-  // tail pair 4 i1' + r = c[4 (i1' + n1/2) + r] -> samples (2t, 2t + 1)
-  float2* o = reinterpret_cast<float2*>(out + static_cast<long long>(blockIdx.x) * h);
-  const float inv = 1.0f / static_cast<float>(h);
-  for (int t = threadIdx.x; t < (h >> 1); t += blockDim.x)
-    o[t] = F::scale(z[(t & 3) * n1 + (n1 >> 1) + (t >> 2)], inv);
-}
-
-// K17: inverse four-step of the tangled spectrum, tail outputs only.
-// j = 4 j1 + j2, i = i1 + n1 i2: t_j2[i1] = e^{+2 pi i j2 i1 / h}
-// IDFT_n1(Z[4 j1 + j2])[i1], c[i1 + n1 i2] = (1/h) sum_j2 i^{j2 i2} t_j2[i1];
-// the tail [h/2, h) is i2 in {2, 3}.
-__global__ void __launch_bounds__(1024)
-    irfft_tail_4step_kernel(const float* __restrict__ hr,
-                            const float* __restrict__ hi,
-                            long long in_stride, float* __restrict__ out,
-                            const float2* __restrict__ tw, int h,
-                            int log2n1) {
-  extern __shared__ float2 z[];
-  const int n1 = h >> 2;
-  const float* r = hr + blockIdx.x * in_stride;
-  const float* q = hi + blockIdx.x * in_stride;
-  for (int k = threadIdx.x; k < h; k += blockDim.x)
-    z[(k & 3) * n1 + F::bitrev(k >> 2, log2n1)] = F::tangle(r, q, k, h, tw);
-  __syncthreads();
-  for (int half = 1; half < n1; half <<= 1) {
-    F::radix2_stage(z, h, 0, half, tw, 2 * h, true);
-    __syncthreads();
-  }
-  float2* o = reinterpret_cast<float2*>(out + static_cast<long long>(blockIdx.x) * h);
-  const float inv = 1.0f / static_cast<float>(h);
-  for (int i1 = threadIdx.x; i1 < n1; i1 += blockDim.x) {
-    const float2 t0 = z[i1];
-    const float2 t1 = F::mul(F::twiddle(tw, 2 * i1, true), z[n1 + i1]);
-    const float2 t2 = F::mul(F::twiddle(tw, 4 * i1, true), z[2 * n1 + i1]);
-    const float2 t3 = F::mul(F::twiddle(tw, 6 * i1, true), z[3 * n1 + i1]);
-    const float2 s02 = F::add(t0, t2), d02 = F::sub(t0, t2);
-    o[i1] = F::scale(F::sub(s02, F::add(t1, t3)), inv);           // i2 = 2
-    o[n1 + i1] = F::scale(F::sub(d02, F::rot(F::sub(t1, t3), true)),
-                          inv);                                    // i2 = 3
-  }
-}
 
 // K14: the length-h complex FFT of split planes on the register-radix core
 // (fft_common.cuh): pass 0 loads zr[k], zi[k] coalesced, the last pass
@@ -282,11 +173,6 @@ int launch_rfft(const float* x, float* hr, float* hi, const float2* tw,
       rows, stream, x, hr, hi, tw));
 }
 
-// h a power of two in [h_min, kMaxH]
-bool bad_h(int h, int h_min) {
-  return h < h_min || (h & (h - 1)) || h > kMaxH;
-}
-
 }  // namespace
 
 // tw: e^{-2 pi i t / 2h} for t < 2h as interleaved float32 (cos, sin) in
@@ -325,40 +211,4 @@ extern "C" int bfir_rfft_hc(const float* x, float* hr, float* hi,
     case 16384: return launch_rfft<14>(x, hr, hi, t, rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// K16 (dif = 1, h >= 1024) and K17 (dif = 0, h >= 512). hr, hi: [rows,
-// in_stride] with the planes in the first h lanes; out: [rows, h].
-static int launch_irfft_tail(const float* hr, const float* hi,
-                             long long in_stride, float* out, const float* tw,
-                             int rows, int h, bool dif, void* stream) {
-  if (rows < 1 || bad_h(h, dif ? 1024 : 512) || in_stride < h)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = dif ? irfft_tail_dif_kernel : irfft_tail_4step_kernel;
-  // the limit is raised to the largest row, kMaxH points, once
-  constexpr int kBytes = kMaxH * static_cast<int>(sizeof(float2));
-  cudaError_t e = dif ? C::raise_smem_once<irfft_tail_dif_kernel>(kBytes)
-                      : C::raise_smem_once<irfft_tail_4step_kernel>(kBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int threads = clamp_threads(dif ? h >> 2 : h >> 1);
-  kernel<<<rows, threads, h * sizeof(float2),
-           static_cast<cudaStream_t>(stream)>>>(
-      hr, hi, in_stride, out, reinterpret_cast<const float2*>(tw), h,
-      log2_of(h >> 2));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int bfir_irfft_tail_dif(const float* hr, const float* hi,
-                                   long long in_stride, float* out,
-                                   const float* tw, int rows, int h,
-                                   void* stream) {
-  return launch_irfft_tail(hr, hi, in_stride, out, tw, rows, h, true, stream);
-}
-
-extern "C" int bfir_irfft_tail_4step(const float* hr, const float* hi,
-                                     long long in_stride, float* out,
-                                     const float* tw, int rows, int h,
-                                     void* stream) {
-  return launch_irfft_tail(hr, hi, in_stride, out, tw, rows, h, false,
-                           stream);
 }

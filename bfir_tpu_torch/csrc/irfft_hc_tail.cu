@@ -1,7 +1,17 @@
-// Overlap-save tail inverse for Hopper (sm_90a): kernel K4 of the port.
+// Overlap-save tail inverse for Hopper (sm_90a): kernels K4, K16 and K17
+// of the port, one kernel.
 //
-// Replaces bfir_tpu/kernels/fft_fused.py::cfft_balanced_fused as reached by
-// ::irfft_split_hc_tail_balanced (the two-stage engine's tail-fire inverse).
+// Replaces three TPU kernels that compute one function:
+//   K4  bfir_tpu/kernels/fft_fused.py::cfft_balanced_fused (pallas_call
+//       :392) as reached by ::irfft_split_hc_tail_balanced (the two-stage
+//       engine's tail-fire inverse);
+//   K16 fft_fused.py::irfft_hc_tail_fused (pallas_call :274);
+//   K17 bfir_tpu/kernels/fft_pallas.py::irfft_hc_tail_pallas
+//       (pallas_call :206).
+// They differ only in how they feed the TPU's matrix unit (a balanced
+// n1 x 128 split, radix-4 decimation in frequency, an inverse four-step);
+// on the H100 one kernel serves all three, and each wrapper keeps its own
+// domain and launch count (kernels/fft_fused.py, kernels/fft_pallas.py).
 //
 // Input: halfcomplex planes hr, hi [rows, >= h] (lane 0 = (DC.re,
 // Nyquist.re)) of a length-n = 2h real spectrum. Output: samples [h, n) of
@@ -14,24 +24,25 @@
 //
 // What bounds it on the H100: at the tail geometry (64 rows, h = 8192) it
 // reads 4 MB and writes 2 MB (1.9 us at 3.35 TB/s) and does about
-// 5 h log2 h = 0.5 MFLOP a row (0.5 us at 67 TFLOP/s): bytes bound it, but
-// a row's passes through shared memory, their barriers and the latency of
-// 64 rows on 132 SMs hold it above that.
+// 5 h log2 h = 0.5 MFLOP a row (0.5 us at 67 TFLOP/s); at session G's
+// shape (h = 1024) 0.8 MB, 0.2 us. Bytes bound it, but a row's passes
+// through shared memory, their barriers and the latency of 64 rows on 132
+// SMs hold it above that.
 //
 // Design: the register-radix, self-sorting core of fft_common.cuh
 // (bfir::fft::core). Pass 0 tangles as it loads: each of its points k
 // reads hr[k], hi[k], the mirrored hr[h-k], hi[h-k] and tw[k], a
 // half-warp's 16 consecutive k at a time (coalesced, through the row
-// stride of lane-padded planes). h = 8192 runs as 32 x 16 x 16 by a block
-// of 512 threads (16 points each) with three barriers; h = 1024 as
-// 32 x 32 by 128 threads (8 points each: five loads a point want more
-// threads in flight) with one barrier; a block a row. The last pass
-// writes only points [h/2, h), the upper half of each radix-R butterfly
-// (the only half computed where one thread holds the butterfly), from
-// registers as (re, im) x 1/h pairs. The
-// twiddles come from the caller's one float64-built table
-// e^{-2 pi i t / 2h}: the tangle's e^{+2 pi i k / 2h} as its conjugate, the
-// FFT's from the quarter table staged into shared memory. The kernel's
+// stride of lane-padded planes). A block takes a row: h / tail_points(L)
+// threads, each holding that many points in registers (8 up to h = 4096,
+// 16 above), one block barrier at h <= 1024 and three above. The last
+// pass writes only points [h/2, h), the upper half of each radix-R
+// butterfly (the only half computed where one thread holds the
+// butterfly), from registers as (re, im) x 1/h pairs. No pass reads a
+// twiddle from device memory after the tangle's: the FFT's come from the
+// quarter table staged into shared memory, from the caller's one
+// float64-built table e^{-2 pi i t / 2h} (the tangle's e^{+2 pi i k / 2h}
+// is its conjugate). The kernel's
 // shared-memory size is raised once per size and device, not per launch.
 
 #include <cuda_runtime.h>
@@ -63,9 +74,12 @@ __global__ void __launch_bounds__(Sh::T)
       [&](int k, float2 v) { o[k - Sh::H / 2] = F::scale(v, inv); });
 }
 
-// 8 points a thread at h = 1024 (five loads a point want more threads in
-// flight there), 16 elsewhere
-template <int L, class Sh = C::Shape<L, L == 10 ? 8 : 16>>
+// points a thread by log2 h: 8 up to h = 4096 (five loads a point want
+// many threads in flight), 16 at 8192 and 16384; the fastest of 8, 16 and
+// 32 at each h on the card (PERF.md §6)
+constexpr int tail_points(int L) { return L >= 13 ? 16 : 8; }
+
+template <int L, class Sh = C::Shape<L, tail_points(L)>>
 int launch(const float* hr, const float* hi, long long in_stride, float* out,
            const float2* tw, int rows, cudaStream_t stream) {
   return static_cast<int>(C::launch_rows<irfft_hc_tail_kernel<Sh>, Sh>(
@@ -74,9 +88,10 @@ int launch(const float* hr, const float* hi, long long in_stride, float* out,
 
 }  // namespace
 
-// tw: e^{-2 pi i t / 2h} for t < 2h as interleaved float32 (cos, sin);
-// h a power of two in [1024, 16384]. Returns the cudaError_t of the
-// launch.
+// K4, K16 and K17. hr, hi: [rows, in_stride] with the planes in the first
+// h lanes; out: [rows, h]; tw: e^{-2 pi i t / 2h} for t < 2h as
+// interleaved float32 (cos, sin); h a power of two in [512, 16384].
+// Returns the cudaError_t of the launch.
 extern "C" int bfir_irfft_hc_tail(const float* hr, const float* hi,
                                   long long in_stride, float* out,
                                   const float* tw, int rows, int h,
@@ -86,6 +101,7 @@ extern "C" int bfir_irfft_hc_tail(const float* hr, const float* hi,
   const auto* t = reinterpret_cast<const float2*>(tw);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (h) {
+    case 512: return launch<9>(hr, hi, in_stride, out, t, rows, s);
     case 1024: return launch<10>(hr, hi, in_stride, out, t, rows, s);
     case 2048: return launch<11>(hr, hi, in_stride, out, t, rows, s);
     case 4096: return launch<12>(hr, hi, in_stride, out, t, rows, s);

@@ -61,10 +61,6 @@ _SIGNATURES = {
     "bfir_cfft_balanced": [_P] * 5 + [_I] * 4 + [_P],
     # x, hr, hi, tw, rows, h, stream
     "bfir_rfft_hc": [_P] * 4 + [_I, _I, _P],
-    # hr, hi, in_stride, out, tw, rows, h, stream
-    "bfir_irfft_tail_dif": [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _P],
-    "bfir_irfft_tail_4step": [_P, _P, ctypes.c_longlong, _P, _P, _I, _I,
-                              _P],
 }
 
 

@@ -6,7 +6,7 @@
   of the length-h complex sequence z[j] = x[2j] + i x[2j+1] (h = n/2),
   inverse-transform z, keep its tail half and interleave (re, im) into
   sample pairs (``csrc/irfft_hc_tail.cu``, on the register-radix core of
-  ``csrc/fft_common.cuh``).
+  ``csrc/fft_common.cuh``; the kernel of K16 and K17 too).
 - ``cfft_balanced_fused(zr, zi, h, *, inverse, tail_only=False)`` (K14):
   the length-h complex FFT of split planes, natural order, on the same
   register-radix core as K4; ``rfft_split_hc_balanced(x, n=None)`` wraps
@@ -16,11 +16,12 @@
   same register-radix core, with the untangle in pairs (k, h - k) after
   it; the kernel is K18's (``kernels/fft_pallas.rfft_hc_pallas``), which
   computes the same function.
-- ``irfft_hc_tail_fused(hr, hi, n)`` (K16): K4's function as a radix-4
-  decimation in frequency with the tail folded into the sub-transforms.
+- ``irfft_hc_tail_fused(hr, hi, n)`` (K16): K4's function, with the
+  reference's domain (n/8 >= 256); on the card K4's kernel.
 
-K14-K16 live in ``csrc/fft_family.cu``; K4, K14 and K15 share the core
-in ``csrc/fft_common.cuh`` (``tests/test_torch_fft_core.py`` models it).
+K14 and K15 live in ``csrc/fft_family.cu``, K4 and K16 in
+``csrc/irfft_hc_tail.cu``; all share the core in ``csrc/fft_common.cuh``
+(``tests/test_torch_fft_core.py`` models it).
 Each kernel computes its transform in its own body; the plain version
 beside each wrapper runs ``torch.fft`` on CPU tensors (float32 or
 float64), and CUDA tensors (float32) launch the kernel or raise. The TPU
@@ -93,9 +94,6 @@ def irfft_split_hc_tail_balanced(hr: torch.Tensor, hi: torch.Tensor,
     h = n // 2
     if hr.device.type == "cpu":
         return irfft_split_hc_tail_plain(hr, hi, n)
-    if hr.device.type != "cuda" or hi.device != hr.device:
-        raise ValueError(f"hr, hi must be on one CUDA device, got "
-                         f"{hr.device}, {hi.device}")
     if hr.dtype != torch.float32 or hi.dtype != torch.float32:
         raise TypeError(f"hr, hi must be float32, got {hr.dtype}, {hi.dtype}")
     if h < 1024 or h & (h - 1) or h > 16384:
@@ -104,25 +102,8 @@ def irfft_split_hc_tail_balanced(hr: torch.Tensor, hi: torch.Tensor,
     if hr.shape != hi.shape or hr.shape[-1] < h:
         raise ValueError(f"hr {tuple(hr.shape)} and hi {tuple(hi.shape)} "
                          f"must match, with >= {h} lanes")
-    batch = hr.shape[:-1]
-    hr2 = hr.reshape(-1, hr.shape[-1])
-    hi2 = hi.reshape(-1, hi.shape[-1])
-    rows = hr2.shape[0]
-    if (hr2.stride(-1) != 1 or hi2.stride(-1) != 1
-            or hr2.stride(0) != hi2.stride(0)):
-        raise ValueError("hr, hi must have unit lane stride and equal row "
-                         "strides")
-    out = torch.empty((rows, h), dtype=torch.float32, device=hr.device)
-    tw = _device_table(h, hr.device)
-    lib = cuda_lib.load()
-    with torch.cuda.device(hr.device):
-        err = lib.bfir_irfft_hc_tail(hr2.data_ptr(), hi2.data_ptr(),
-                                     hr2.stride(0), out.data_ptr(),
-                                     tw.data_ptr(), rows, h,
-                                     cuda_lib.stream_of(out))
-    cuda_lib.check(err, "irfft_split_hc_tail_balanced")
-    irfft_split_hc_tail_balanced.launches += 1
-    return out.reshape(*batch, h)
+    return launch_irfft_tail(hr, hi, n, irfft_split_hc_tail_balanced,
+                             strict=True)
 
 
 irfft_split_hc_tail_balanced.launches = 0
@@ -252,8 +233,7 @@ def irfft_hc_tail_fused(hr: torch.Tensor, hi: torch.Tensor,
     _check_dtype(hi, "hi")
     if hr.device.type == "cpu" and hi.device.type == "cpu":
         return irfft_hc_tail_fused_plain(hr, hi, n)
-    return launch_irfft_tail(hr, hi, n, "bfir_irfft_tail_dif",
-                             irfft_hc_tail_fused)
+    return launch_irfft_tail(hr, hi, n, irfft_hc_tail_fused)
 
 
 cfft_balanced_fused.launches = 0

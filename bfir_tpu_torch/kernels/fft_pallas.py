@@ -12,8 +12,10 @@ kernel that keeps a row's whole transform on chip.
   K15, which computes the same function).
 - ``irfft_hc_tail_pallas(hr, hi, n)`` (K17): samples [n/2, n) of the
   inverse of halfcomplex planes ``[..., >= n/2]`` (lane padding ignored).
-  CUDA kernel: the tangle, then the inverse four-step with the last
-  radix-4 combine computed only for the tail.
+  CUDA kernel: K4's, the tangle as pass 0 of the register-radix core
+  loads, the inverse with only the tail half stored
+  (``csrc/irfft_hc_tail.cu``, shared with K4 and K16, which compute the
+  same function).
 
 Both need a power-of-two n with n/8 >= 128, as the reference's; the CUDA
 kernels also need n/2 <= 16384 (a row's transform in shared memory). The
@@ -22,7 +24,8 @@ block takes one row, any row count works.
 
 Each wrapper runs its plain PyTorch version (``torch.fft``) on CPU tensors,
 float32 or float64, and launches its kernel on CUDA tensors, float32 only.
-The launch helpers here serve K14-K16 in ``kernels/fft_fused.py`` too.
+The launch helpers here serve K4, K15 and K16 in ``kernels/fft_fused.py``
+too.
 """
 
 from __future__ import annotations
@@ -90,14 +93,20 @@ def _check_planes(hr: torch.Tensor, hi: torch.Tensor, h: int) -> None:
                          f"must match, with >= {h} lanes")
 
 
-def _rows_with_stride(hr: torch.Tensor, hi: torch.Tensor, h: int):
-    """Planes as rows [R, width] that share one row stride and have unit
-    lane stride (copying the first h lanes where they do not), and that
-    stride."""
+def _rows_with_stride(hr: torch.Tensor, hi: torch.Tensor, h: int,
+                      strict: bool = False):
+    """Planes as rows [R, width] that share one row stride of at least h
+    and have unit lane stride (copying the first h lanes where they do
+    not; ``strict``: raising where the lane or row strides do not), and
+    that stride."""
     hr2 = hr.reshape(-1, hr.shape[-1])
     hi2 = hi.reshape(-1, hi.shape[-1])
-    if (hr2.stride(-1) != 1 or hi2.stride(-1) != 1
-            or hr2.stride(0) != hi2.stride(0) or hr2.stride(0) < h):
+    strided = (hr2.stride(-1) == 1 and hi2.stride(-1) == 1
+               and hr2.stride(0) == hi2.stride(0))
+    if strict and not strided:
+        raise ValueError("hr, hi must have unit lane stride and equal row "
+                         "strides")
+    if not strided or hr2.stride(0) < h:
         hr2, hi2 = hr2[:, :h].contiguous(), hi2[:, :h].contiguous()
     return hr2, hi2, hr2.stride(0) if hr2.shape[0] > 1 else h
 
@@ -127,23 +136,26 @@ def launch_rfft_hc(x: torch.Tensor, m: int, wrapper):
     return hr.reshape(*batch, h), hi.reshape(*batch, h)
 
 
-def launch_irfft_tail(hr: torch.Tensor, hi: torch.Tensor, n: int, entry: str,
-                      wrapper) -> torch.Tensor:
-    """Run the inverse-tail kernel ``entry`` (K16 or K17) of ``wrapper`` on
-    CUDA planes [..., >= n/2] -> samples [n/2, n), [..., n/2]."""
+def launch_irfft_tail(hr: torch.Tensor, hi: torch.Tensor, n: int,
+                      wrapper, strict: bool = False) -> torch.Tensor:
+    """Run the inverse-tail kernel of ``wrapper`` (K4, K16 or K17: one
+    kernel, each wrapper counting its own launches) on CUDA planes
+    [..., >= n/2] -> samples [n/2, n), [..., n/2]. ``strict``: planes
+    that would need a copy (``_rows_with_stride``) raise instead."""
     h = n // 2
     _check_cuda(h, hr.device, hr, hi)
     batch = hr.shape[:-1]
-    hr2, hi2, stride = _rows_with_stride(hr, hi, h)
+    hr2, hi2, stride = _rows_with_stride(hr, hi, h, strict)
     rows = hr2.shape[0]
     out = torch.empty((rows, h), dtype=torch.float32, device=hr.device)
     if rows:
         tw = _device_table(h, hr.device)
         lib = cuda_lib.load()
         with torch.cuda.device(hr.device):
-            err = getattr(lib, entry)(hr2.data_ptr(), hi2.data_ptr(), stride,
-                                      out.data_ptr(), tw.data_ptr(), rows, h,
-                                      cuda_lib.stream_of(out))
+            err = lib.bfir_irfft_hc_tail(hr2.data_ptr(), hi2.data_ptr(),
+                                         stride, out.data_ptr(),
+                                         tw.data_ptr(), rows, h,
+                                         cuda_lib.stream_of(out))
         cuda_lib.check(err, wrapper.__name__)
         wrapper.launches += 1
     return out.reshape(*batch, h)
@@ -185,8 +197,7 @@ def irfft_hc_tail_pallas(hr: torch.Tensor, hi: torch.Tensor,
     _check_dtype(hi, "hi")
     if hr.device.type == "cpu" and hi.device.type == "cpu":
         return irfft_hc_tail_pallas_plain(hr, hi, n)
-    return launch_irfft_tail(hr, hi, n, "bfir_irfft_tail_4step",
-                             irfft_hc_tail_pallas)
+    return launch_irfft_tail(hr, hi, n, irfft_hc_tail_pallas)
 
 
 rfft_hc_pallas.launches = 0

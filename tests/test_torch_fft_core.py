@@ -1,6 +1,7 @@
-"""The register-radix, self-sorting FFT core of K4, K14, K15 and K18
-(``bfir_tpu_torch/csrc/fft_common.cuh``, namespace ``bfir::fft::core``),
-modelled in numpy on the CPU, where no CUDA compiler runs.
+"""The register-radix, self-sorting FFT core of every FFT kernel of the
+port, K4 and K14-K18 (``bfir_tpu_torch/csrc/fft_common.cuh``, namespace
+``bfir::fft::core``), modelled in numpy on the CPU, where no CUDA compiler
+runs.
 
 The model runs the core's passes with the same plan (parsed from the CUDA
 source), the same shared-memory index maps and swizzles, the same twiddle
@@ -8,15 +9,16 @@ indices (the quarter table staged from ``_device_table(h)``, powers of two
 loaded and the rest multiplied out), the same in-register radix-R DFT and
 the same tail selection. It is held against ``numpy.fft`` in float64
 (rel 1e-12 x max) and float32 (2e-5 x max, the reference's own bound), for
-the complex transform forward, inverse and inverse-tail (K14), for K4's
-tangle-on-load inverse tail against ``np.fft.irfft(...)[n/2:]`` and for
-the forward real route of K15/K18 (sample pairs loaded, Z kept in shared
-memory, the untangle in pairs (k, h - k)) against ``np.fft.rfft`` packed
-as halfcomplex planes. A second group of tests enumerates every pass's
-shared-memory accesses per thread, the kept output's stores and the
+the complex transform forward, inverse and inverse-tail (K14), for the
+tangle-on-load inverse tail of K4, K16 and K17 (one kernel, its points a
+thread parsed from ``tail_points``) against ``np.fft.irfft(...)[n/2:]``,
+and for the forward real route of K15/K18 (sample pairs loaded, Z kept in
+shared memory, the untangle in pairs (k, h - k)) against ``np.fft.rfft``
+packed as halfcomplex planes. A second group of tests enumerates every
+pass's shared-memory accesses per thread, the kept output's stores and the
 untangle's reads, and asserts that each 16-lane half-warp touches 16
 distinct 8-byte bank pairs (data) or distinct bank pairs for distinct
-addresses (twiddles)."""
+addresses (twiddles)"""
 
 import os
 import re
@@ -31,8 +33,9 @@ from bfir_tpu_torch.kernels import fft_pallas as FP
 SRC = os.path.join(os.path.dirname(FF.__file__), os.pardir, "csrc",
                    "fft_common.cuh")
 FAMILY = os.path.join(os.path.dirname(SRC), "fft_family.cu")
-SIZES = [512, 1024, 2048, 8192, 16384]
-K4_SIZES = [h for h in SIZES if h >= 1024]  # K4's and K14's domain
+TAIL = os.path.join(os.path.dirname(SRC), "irfft_hc_tail.cu")
+SIZES = [512, 1024, 2048, 4096, 8192, 16384]  # every h the kernels take
+K14_SIZES = [h for h in SIZES if h >= 1024]  # K14's domain
 
 
 def _plan_table():
@@ -52,32 +55,44 @@ def _log2(v):
     return int(v).bit_length() - 1
 
 
-def k4_points(h):
-    return 8 if h == 1024 else 16
-
-
 def k14_points(h):
     return 32 if h == 8192 else 16
 
 
-def _rfft_points_rule():
-    """(log2 h, its points, every other h's points) of ``rfft_points`` in
-    csrc/fft_family.cu, so the model tests the kernel's own rule."""
-    with open(FAMILY) as f:
+def _points_rule(path, name):
+    """(op, log2 h, its points, every other h's points) of the kernel's
+    ``constexpr int name(int L) { return L == a ? b : c; }`` (or ``L >=
+    a``) in ``path``, so the model tests the kernel's own rule."""
+    with open(path) as f:
         text = f.read()
-    m = re.search(r"constexpr int rfft_points\(int L\)\s*\{\s*return\s+"
-                  r"L\s*==\s*(\d+)\s*\?\s*(\d+)\s*:\s*(\d+)\s*;\s*\}", text)
-    assert m, "rfft_points in fft_family.cu is no longer `L == a ? b : c`"
-    return tuple(int(v) for v in m.groups())
+    m = re.search(rf"constexpr int {name}\(int L\)\s*\{{\s*return\s+L\s*"
+                  r"(==|>=)\s*(\d+)\s*\?\s*(\d+)\s*:\s*(\d+)\s*;\s*\}",
+                  text)
+    assert m, (f"{name} in {os.path.basename(path)} is no longer "
+               "`L == a ? b : c` or `L >= a ? b : c`")
+    return m.group(1), int(m.group(2)), int(m.group(3)), int(m.group(4))
 
 
-RFFT_RULE = _rfft_points_rule()
+def _points(rule, h):
+    """The points a thread that ``rule`` gives at h."""
+    op, lh, pts, other = rule
+    hit = _log2(h) == lh if op == "==" else _log2(h) >= lh
+    return pts if hit else other
+
+
+RFFT_RULE = _points_rule(FAMILY, "rfft_points")
+TAIL_RULE = _points_rule(TAIL, "tail_points")
 
 
 def rfft_points(h):
     """K15/K18's points a thread (``rfft_points`` in csrc/fft_family.cu)."""
-    lh, pts, other = RFFT_RULE
-    return pts if _log2(h) == lh else other
+    return _points(RFFT_RULE, h)
+
+
+def tail_points(h):
+    """The inverse tail's (K4, K16, K17) points a thread (``tail_points``
+    in csrc/irfft_hc_tail.cu)."""
+    return _points(TAIL_RULE, h)
 
 
 def core_points(h):
@@ -87,10 +102,10 @@ def core_points(h):
 
 
 # (h, points a thread) of the kernels' shapes: K14 holds 16 points a
-# thread, 32 at h = 8192; K4 8 at h = 1024 and 16 elsewhere; K15/K18 as
+# thread, 32 at h = 8192; the inverse tail and K15/K18 as tail_points and
 # rfft_points, down to h = 512
-SHAPES = sorted({(h, k14_points(h)) for h in K4_SIZES}
-                | {(h, k4_points(h)) for h in K4_SIZES}
+SHAPES = sorted({(h, k14_points(h)) for h in K14_SIZES}
+                | {(h, tail_points(h)) for h in SIZES}
                 | {(h, rfft_points(h)) for h in SIZES})
 # every shape the core's forward real route can take: h in [512, 16384],
 # 8, 16 or 32 points a thread, at most 1024 threads
@@ -321,7 +336,7 @@ def k4_model(hr, hi, h, dtype):
     q = _quarter(h, tw)
     hr, hi = hr.astype(real), hi.astype(real)
     c = core_model(lambda k: _tangle(hr, hi, k, h, tw).astype(dtype), h,
-                   k4_points(h), q, True, True)[:, h // 2:]
+                   tail_points(h), q, True, True)[:, h // 2:]
     c = c * real(1.0 / h)
     out = np.empty((hr.shape[0], h), real)
     out[:, 0::2], out[:, 1::2] = c.real, c.imag
@@ -402,15 +417,16 @@ def test_core_model_matches_numpy(h, mode, dtype, rel):
     assert _rel_err(got, ref) <= rel
 
 
-@pytest.mark.parametrize("h", K4_SIZES)
+@pytest.mark.parametrize("h", SIZES)
 @pytest.mark.parametrize("dtype, rel", [(np.complex128, 1e-12),
                                         (np.complex64, 2e-5)],
                          ids=["float64", "float32"])
 def test_k4_tangle_on_load_matches_irfft(h, dtype, rel):
-    """K4: halfcomplex planes, tangled as the first pass loads them, the
-    inverse core with only the tail half computed and stored as (re, im)
-    sample pairs x 1/h == np.fft.irfft(spec, 2h)[h:]; the plain wrapper
-    agrees too."""
+    """The inverse tail (K4, K16, K17: one kernel) at every h it takes:
+    halfcomplex planes, tangled as the first pass loads them, the inverse
+    core with only the tail half computed and stored as (re, im) sample
+    pairs x 1/h == np.fft.irfft(spec, 2h)[h:]; the plain wrappers of the
+    three agree too, each in its own domain."""
     rng = np.random.default_rng(h)
     n = 2 * h
     x = rng.standard_normal((3, n))
@@ -420,9 +436,12 @@ def test_k4_tangle_on_load_matches_irfft(h, dtype, rel):
     got = k4_model(hr, hi, h, dtype)
     ref = np.fft.irfft(spec, n)[:, h:]
     assert _rel_err(got, ref) <= rel
-    plain = FF.irfft_split_hc_tail_plain(torch.from_numpy(hr),
-                                         torch.from_numpy(hi), n).numpy()
-    assert _rel_err(plain, ref) <= 1e-12
+    plains = [FP.irfft_hc_tail_pallas_plain]  # K17 from h = 512
+    if h >= 1024:
+        plains += [FF.irfft_split_hc_tail_plain, FF.irfft_hc_tail_fused_plain]
+    for plain in plains:
+        got = plain(torch.from_numpy(hr), torch.from_numpy(hi), n).numpy()
+        assert _rel_err(got, ref) <= 1e-12
 
 
 @pytest.mark.parametrize("h", SIZES)

@@ -87,11 +87,11 @@ def test_forward_matches_pallas(name, shape):
 @pytest.mark.parametrize("name, rows, n", [
     ("irfft_hc_tail_fused", 16, 2048), ("irfft_hc_tail_fused", 16, 4096),
     ("irfft_hc_tail_pallas", 64, 2048), ("irfft_hc_tail_pallas", 130, 2048),
-    ("irfft_hc_tail_pallas", 8, 4096),
+    ("irfft_hc_tail_pallas", 8, 4096), ("irfft_hc_tail_pallas", 16, 1024),
 ])
 def test_inverse_tail_matches_pallas(name, rows, n):
     """K16 and K17: samples [n/2, n) of the inverse of halfcomplex
-    planes."""
+    planes; K17 also at its smallest n, 1024 (h = 512)."""
     port, ref = INVERSE[name]
     rng = np.random.default_rng(42)
     hr = rng.standard_normal((rows, n // 2)).astype(np.float32)

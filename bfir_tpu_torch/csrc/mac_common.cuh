@@ -1,7 +1,7 @@
 // Device helpers shared by the ring-MAC kernels (csrc/mac_hc.cu,
-// csrc/mac_variants.cu, csrc/mac_tail_hc.cu): a read-only 16-byte load and
+// csrc/mac_variants.cu, csrc/mac_tail_hc.cu): a read-only 16-byte load,
 // the complex multiply-accumulate of four neighbouring lanes on split
-// re/im planes.
+// re/im planes, and the partition loop of one thread over those lanes.
 
 #pragma once
 
@@ -33,6 +33,38 @@ __device__ __forceinline__ void cmac4(float4& ar, float4& ai, float4 cr,
   cmac(ar.y, ai.y, cr.y, ci.y, rr.y, ri.y);
   cmac(ar.z, ai.z, cr.z, ci.z, rr.z, ri.z);
   cmac(ar.w, ai.w, cr.w, ci.w, rr.w, ri.w);
+}
+
+// The ring MAC of one thread's four neighbouring lanes over all P
+// partitions, with the sums in registers: partition p multiplies ring slot
+// (pos - p) mod P. load(slot, p, rr, ri, cr, ci) fetches the four planes'
+// vectors; lane0 as in cmac4. kUnroll partitions' loads issue before their
+// math; the sums run in partition order whatever kUnroll is.
+template <int kUnroll = 1, class Load>
+__device__ __forceinline__ void ring_mac4(float4& ar, float4& ai, int P,
+                                          int pos, bool lane0, Load load) {
+  ar = make_float4(0.f, 0.f, 0.f, 0.f);
+  ai = ar;
+  int p = 0;
+  for (; p + kUnroll <= P; p += kUnroll) {
+    float4 rr[kUnroll], ri[kUnroll], cr[kUnroll], ci[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      int slot = pos - p - u;
+      if (slot < 0) slot += P;
+      load(slot, p + u, rr[u], ri[u], cr[u], ci[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      cmac4(ar, ai, cr[u], ci[u], rr[u], ri[u], lane0);
+  }
+  for (; p < P; ++p) {
+    int slot = pos - p;
+    if (slot < 0) slot += P;
+    float4 rr, ri, cr, ci;
+    load(slot, p, rr, ri, cr, ci);
+    cmac4(ar, ai, cr, ci, rr, ri, lane0);
+  }
 }
 
 }  // namespace bfir

@@ -105,19 +105,19 @@ __global__ void __launch_bounds__(kThreads)
   if (k >= band_len) return;
   const int lane = band_start + k;
   const int cc = Cs == 1 ? 0 : c;
-  float4 ar = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 ai = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p = 0; p < P; ++p) {
-    int slot = pos - p;
-    if (slot < 0) slot += P;
-    const long long r_row = static_cast<long long>(slot) * 2 * C + c;
-    const long long c_row = static_cast<long long>(p) * 2 * Cs + cc;
-    const float4 rr = load4<RK>(ring, r_row, hp, lane);
-    const float4 ri = load4<RK>(ring, r_row + C, hp, lane);
-    const float4 cr = load4<CK>(coeff, c_row, hp, lane);
-    const float4 ci = load4<CK>(coeff, c_row + Cs, hp, lane);
-    bfir::cmac4(ar, ai, cr, ci, rr, ri, kLane0 && lane == 0);
-  }
+  float4 ar, ai;
+  bfir::ring_mac4(ar, ai, P, pos, kLane0 && lane == 0,
+                  [&](int slot, int p, float4& rr, float4& ri, float4& cr,
+                      float4& ci) {
+                    const long long r_row =
+                        static_cast<long long>(slot) * 2 * C + c;
+                    const long long c_row =
+                        static_cast<long long>(p) * 2 * Cs + cc;
+                    rr = load4<RK>(ring, r_row, hp, lane);
+                    ri = load4<RK>(ring, r_row + C, hp, lane);
+                    cr = load4<CK>(coeff, c_row, hp, lane);
+                    ci = load4<CK>(coeff, c_row + Cs, hp, lane);
+                  });
   const long long o = static_cast<long long>(c) * band_len + k;
   *reinterpret_cast<float4*>(yr + o) = ar;
   *reinterpret_cast<float4*>(yi + o) = ai;

@@ -50,8 +50,11 @@ _SIGNATURES = {
     # ring_re, ring_im, coeff_re, coeff_im, yr, yi, P, C, fp, lanes, pos,
     # stream
     "bfir_mac_split": [_P] * 6 + [_I] * 5 + [_P],
-    # ring, coeff, wr, wi, out, P, C, hp, pos, stream
-    "bfir_mac_tail_hc": [_P] * 5 + [_I] * 4 + [_P],
+    # ring, coeff, wr, wi, out, scratch, P, C, hp, pos, grid, splits, ks,
+    # stream
+    "bfir_mac_tail_hc": [_P] * 6 + [_I] * 7 + [_P],
+    # grid (out)
+    "bfir_mac_tail_hc_grid": [ctypes.POINTER(_I)],
     # ring, coeff, xpk, yr, yi, P, C, hp, pos, stream
     "bfir_mac_hc_insert": [_P] * 5 + [_I] * 4 + [_P],
     # x, dv, e0, e1, nof, lg, ilg, q, e0', e1', nof', lg', ilg', C, T,
@@ -61,6 +64,8 @@ _SIGNATURES = {
     "bfir_cfft_balanced": [_P] * 5 + [_I] * 4 + [_P],
     # x, hr, hi, tw, rows, h, stream
     "bfir_rfft_hc": [_P] * 4 + [_I, _I, _P],
+    # kind, is_f64, in, out, cycles, iters, mask, stream
+    "bfir_chain_latency": [_I, _I, _P, _P, _P, _I, ctypes.c_uint, _P],
 }
 
 

@@ -37,6 +37,7 @@ used again.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -526,13 +527,48 @@ def mac_hc_insert(ring_pk: torch.Tensor, coeff_pk: torch.Tensor,
     return yr, yi, ring_pk
 
 
+# K12's product tile (channels x samples) and k-slice, csrc/mac_tail_hc.cu's
+# kTile and kSlice
+_TAIL_TILE, _TAIL_SLICE = 64, 16
+
+
+def mac_tail_plan(c: int, hp: int, grid: int) -> Tuple[int, int, int]:
+    """K12's product work for a grid of ``grid`` blocks -> (splits, k rows
+    a split, scratch floats). The [C, 2Hp] x [2Hp, Hp] product is cut into
+    64 x 64 output tiles, and the k range into splits of whole 16-row
+    slices, at least four a split, so that tiles x splits is about the
+    grid. The scratch holds the accumulator [2Hp, C rounded up to 64] and,
+    with more than one split, the partial sums [splits, C, Hp]."""
+    tiles = -(-c // _TAIL_TILE) * -(-hp // _TAIL_TILE)
+    slices = -(-2 * hp // _TAIL_SLICE)
+    splits = max(1, min(grid // tiles, slices // 4))
+    per = -(-slices // splits)
+    splits = -(-slices // per)
+    scratch = 2 * hp * _round_up(c, _TAIL_TILE)
+    if splits > 1:
+        scratch += splits * c * hp
+    return splits, per * _TAIL_SLICE, scratch
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_grid(device: torch.device) -> int:
+    """Blocks of K12's cooperative grid on ``device``."""
+    grid = ctypes.c_int()
+    lib = cuda_lib.load()
+    with torch.cuda.device(device):
+        err = lib.bfir_mac_tail_hc_grid(ctypes.byref(grid))
+    cuda_lib.check(err, "mac_tail_hc grid")
+    return grid.value
+
+
 def mac_tail_hc(ring_pk: torch.Tensor, coeff_pk: torch.Tensor,
                 wr: torch.Tensor, wi: torch.Tensor, pos: int):
     """K12: the halfcomplex ring MAC over float32 ring and per-channel
     coefficients [P, 2C, Hp] followed, in the same kernel, by the tail
     product ``acc_r @ wr + acc_i @ wi`` against the half-DFT basis
     [Hp, Hp] (``_tail_basis``) -> out float32 [C, Hp], the time-domain
-    overlap-save tail. Replaces ``spectrum_mac.mac_tail_pallas_hc``."""
+    overlap-save tail. One cooperative launch over a grid that fills the
+    card (``mac_tail_plan``). Replaces ``spectrum_mac.mac_tail_pallas_hc``."""
     _check_hc_pair(ring_pk, coeff_pk)
     if ring_pk.device.type == "cpu":
         return mac_tail_hc_plain(ring_pk, coeff_pk, wr, wi, pos)
@@ -541,14 +577,19 @@ def mac_tail_hc(ring_pk: torch.Tensor, coeff_pk: torch.Tensor,
                     ("wi", wi)):
         _f32_cuda(t, name, dev)
     p, c2, hp = ring_pk.shape
+    c = c2 // 2
     _same_shape(wr.shape, (hp, hp), "wr")
     _same_shape(wi.shape, (hp, hp), "wi")
-    out = torch.empty((c2 // 2, hp), dtype=torch.float32, device=dev)
+    grid = _tail_grid(dev)
+    splits, ks, floats = mac_tail_plan(c, hp, grid)
+    out = torch.empty((c, hp), dtype=torch.float32, device=dev)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
         err = lib.bfir_mac_tail_hc(ring_pk.data_ptr(), coeff_pk.data_ptr(),
                                    wr.data_ptr(), wi.data_ptr(),
-                                   out.data_ptr(), p, c2 // 2, hp, pos % p,
+                                   out.data_ptr(), scratch.data_ptr(), p, c,
+                                   hp, pos % p, grid, splits, ks,
                                    cuda_lib.stream_of(out))
     cuda_lib.check(err, "mac_tail_hc")
     mac_tail_hc.launches += 1

@@ -19,8 +19,13 @@ Phases (any failure exits non-zero before the last line is printed):
    version and, where one exists, the one PyTorch call computing the same
    function, and the least time the card could take (bytes over 3.35 TB/s
    or flops over 67 TFLOP/s float32, the larger); K9 must equal its plain
-   version bit for bit, also at [64, 65536] against the plain loop on the
-   CPU;
+   version bit for bit, also at [64, 65536], [64, 20000] and (ragged)
+   [65, 1001] against the plain loop on the CPU, and is timed in float32
+   and float64 beside the latency of its serial chain (the operations of
+   its SASS loop, each timed on the card by ``csrc/chain_latency.cu``),
+   its plain version timed after every path (the trace of its 25602
+   launches makes later traces lose events); K9's and K12's ptxas reports are logged and K9's SASS is written to
+   ``build/smoke/quantize_kernel.sass``;
 4. session A: a 64-channel x 131072-tap impulse WAV streamed through
    ``StreamProcessor(..., device="cuda").process`` in uneven chunks; the
    two-stage engine with the int24 tail; worst-channel SNR against scipy;
@@ -63,7 +68,8 @@ planes with h and h + 128 lanes (timed at [64, 8192], logged at [64,
 1024]), K10-K13 at the
 flagship: K10 (k = 1, 4, 32) and K11 on the packed ring and coefficients
 of K8's check, K12 and K13 on hc planes [128, 128, 1024] (K12 also with a
-zero-padded basis and at Hp = 2048, untimed; K13's ring bit for bit), and
+zero-padded basis, at Hp = 2048 and at 65 channels, untimed, with its
+cooperative grid and split plans logged; K13's ring bit for bit), and
 the FFT family K14-K18 timed at session G's shape [64, 2048] (h = 1024)
 beside ``torch.fft`` and at [64, 16384] (h = 8192): K15 and K18 at
 h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
@@ -85,6 +91,7 @@ forward, the others at [64, 16384]), and the
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,6 +110,11 @@ LSB24 = 2.0 ** -23  # one step of 24-bit output at +-1 full scale
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+CLOCK_HZ = 1.755e9         # H100 boost clock of the earlier estimates
+# K9's serial chain from e0 to the next e0, as the SASS of csrc/dither_q.cu's
+# loop shows it (dump_sass): operation -> how many, per sample
+K9_CHAIN = {"float32": {"add": 5, "trunc": 1, "max": 2},
+            "float64": {"add": 5, "trunc": 1, "select": 1}}
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "mac_hc": ("bfir_tpu_torch/csrc/mac_hc.cu",
@@ -266,17 +278,17 @@ def _event_ms(fn, reps=20):
     return float(np.median(times))
 
 
-def _time_pair(name, variant, kernel, plain, library=None, plain_reps=20):
-    """Device ms per call of the kernel, its plain version (over
-    ``plain_reps`` calls) and the library call (None where there is none),
-    logged beside the CUDA-event medians of kernel and plain."""
-    ms = (_device_ms(kernel), _device_ms(plain, plain_reps),
+def _time_pair(name, variant, kernel, plain, library=None):
+    """Device ms per call of the kernel, its plain version and the library
+    call (None where there is none), logged beside the CUDA-event medians
+    of kernel and plain."""
+    ms = (_device_ms(kernel), _device_ms(plain),
           None if library is None else _device_ms(library))
-    ev = (_event_ms(kernel), _event_ms(plain, plain_reps))
+    ev = (_event_ms(kernel), _event_ms(plain))
     lib = "" if library is None else f", library call {ms[2]:.4f} ms"
     log(f"kernel {name} [{variant}]: device {ms[0]:.4f} ms, plain "
-        f"{ms[1]:.4f} ms ({plain_reps} calls){lib} per call (profiler, 20 "
-        f"calls); CUDA-event median {ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
+        f"{ms[1]:.4f} ms{lib} per call (profiler, 20 calls); CUDA-event "
+        f"median {ev[0]:.4f} ms, plain {ev[1]:.4f} ms")
     return ms
 
 
@@ -473,12 +485,10 @@ def check_kernels():
         lambda: K.mac_packed(ring, coeff, 77, nf),
         lambda: K.mac_packed_plain(ring, coeff, 77, nf),
         mac_cost(ring, coeff, pp, nf, fp))
-    out["quantize_hp_tpdf"] = {}  # its row's place; timed last, below
+    out["quantize_hp_tpdf"] = {}  # its row's place; checked last, below
     check_uniform_macs(run, mac_cost, ring, coeff)
     for name, at in check_fft_family(run).items():
         out[name]["also"] = at
-    # K9's plain version launches tens of thousands of kernels a call: its
-    # trace makes every later one lose events (_traced), so it comes last
     out["quantize_hp_tpdf"].update(check_quantizer())
     return out
 
@@ -489,8 +499,10 @@ def check_uniform_macs(run, mac_cost, ring, coeff):
     ring mirrors slot s at s + P); K12 and K13 on hc planes [128, 128,
     1024] with per-channel coefficients. K10's unrolled chunk sizes 1 and
     4 and its loop (k = 32), K12 with a zero-padded basis (blocks of 64,
-    Hp = 128) and at Hp = 2048 (two passes of its 1024 lanes) are checked
-    untimed. K13's ring must equal its plain version's bit for bit."""
+    Hp = 128), at Hp = 2048 and at C = 65 with P = 5 (the last warp item
+    and channel tile ragged) are checked untimed; K12's cooperative grid,
+    each shape's split plan and its ptxas report are logged. K13's ring
+    must equal its plain version's bit for bit."""
     import torch
 
     from bfir_tpu_torch.kernels import spectrum_mac as K
@@ -534,14 +546,31 @@ def check_uniform_macs(run, mac_cost, ring, coeff):
     log("kernel mac_hc_insert: the ring equals the plain version's bit for "
         "bit, slot 5 holds xpk")
     del rk, rp
-    for n, p, h in ((N, pp, hp), (64, 8, 128), (2048, 4, 2048)):
-        r, g = (ring, coeff) if h == hp else (rn(p, 2 * C, h), rn(p, 2 * C, h))
+    grid = K._tail_grid(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = []
+    for n, p, h, ch in ((N, pp, hp, C), (64, 8, 128, C), (2048, 4, 2048, C),
+                        (N, 5, hp, 65)):
+        r, g = ((ring, coeff) if (h, ch) == (hp, C)
+                else (rn(p, 2 * ch, h), rn(p, 2 * ch, h)))
         wr, wi = K._tail_basis(n, h, torch.float32, dev)
-        run("mac_tail_hc", f"f32 [{p}, {2 * C}, {h}], blocks of {n}",
+        run("mac_tail_hc", f"f32 [{p}, {2 * ch}, {h}], blocks of {n}",
             lambda: K.mac_tail_hc(r, g, wr, wi, 9),
             lambda: K.mac_tail_hc_plain(r, g, wr, wi, 9),
             (_nbytes(r, g, wr, wi) + C * h * 4,
-             8 * p * C * h + 4 * C * h * h) if h == hp else None)
+             8 * p * C * h + 4 * C * h * h) if (h, ch) == (hp, C) else None)
+        plans.append(f"C {ch}, Hp {h}: {K.mac_tail_plan(ch, h, grid)[:2]}")
+    # the same launch with one partition: the product, the partial sums and
+    # both barriers, and a MAC of 1/128 of the flagship's bytes
+    r1, g1 = ring[:1].contiguous(), coeff[:1].contiguous()
+    wr, wi = K._tail_basis(N, hp, torch.float32, dev)
+    log(f"kernel mac_tail_hc [f32 [1, {2 * C}, {hp}]]: device "
+        f"{_device_ms(lambda: K.mac_tail_hc(r1, g1, wr, wi, 0)):.4f} ms: "
+        "all but the MAC of the flagship call")
+    log(f"kernel mac_tail_hc: cooperative grid of {grid} blocks of 256 "
+        f"threads, {grid / sms:g} a block per SM on {sms} SMs; (splits, k "
+        "rows a split) " + "; ".join(plans))
+    log_ptxas("mac_tail_hc_kernel")
 
 
 def check_fft_family(run):
@@ -648,30 +677,39 @@ def check_fft_family(run):
 
 def check_quantizer():
     """K9 against its plain version, bit for bit in all six outputs, at
-    int24 and int16 limits on inputs that clip: [64, 1024] float32 (timed)
-    and float64 against the plain loop on the card, [64, 65536] float32
-    against the plain loop on the CPU (on the card the loop costs launches
-    per sample). Returns the kernel's row of ``check_kernels``."""
+    int24 and int16 limits on inputs that clip: [64, 1024] float32 and
+    float64 against the plain loop on the card (timed at int24; float32 is
+    the row), [64, 65536] and [64, 20000] float32 (session E's largest
+    chunk; the kernel timed alone) and [65, 1001] float32 and float64
+    (a ragged warp and rows of no whole 16-byte vectors: the scalar path)
+    against the plain loop on the CPU (on the card it costs launches per
+    sample). Logs each timed shape's bounds and the kernel's ptxas report,
+    and writes its SASS (``dump_sass``). Returns the kernel's row of
+    ``check_kernels``."""
     import torch
 
     from bfir_tpu_torch.kernels import dither_kernel as DK
 
     rng = np.random.default_rng(17)
     row = None
+    lat, clock = chain_latency()
+    f32, f64 = torch.float32, torch.float64
+    cases = ((f32, C, 1024, DEVICE), (f64, C, 1024, DEVICE),
+             (f32, C, 65536, "cpu"), (f32, C, 20000, "cpu"),
+             (f32, 65, 1001, "cpu"), (f64, 65, 1001, "cpu"))
     for bits in (24, 16):
         imin, imax = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
-        for dt, t, plain_dev in ((torch.float32, 1024, DEVICE),
-                                 (torch.float64, 1024, DEVICE),
-                                 (torch.float32, 65536, "cpu")):
+        for dt, rows, t, plain_dev in cases:
             npdt = np.float32 if dt == torch.float32 else np.float64
-            byte = rng.integers(-128, 128, (C, t + 1))
+            byte = rng.integers(-128, 128, (rows, t + 1))
             args = [
-                rng.uniform(-1.1, 1.1, (C, t)) * (imax + 1),  # x clips
+                rng.uniform(-1.1, 1.1, (rows, t)) * (imax + 1),  # x clips
                 0.5 + (np.diff(byte, axis=1) + 1.0) / 255.0,  # dither values
-                rng.uniform(-1.5, 1.5, C), rng.uniform(-1.5, 1.5, C)]
+                rng.uniform(-1.5, 1.5, rows), rng.uniform(-1.5, 1.5, rows)]
             args = [torch.from_numpy(a.astype(npdt)) for a in args]
-            stats = [torch.zeros(C, dtype=torch.int32),
-                     torch.zeros(C, dtype=dt), torch.zeros(C, dtype=torch.int32)]
+            stats = [torch.zeros(rows, dtype=torch.int32),
+                     torch.zeros(rows, dtype=dt),
+                     torch.zeros(rows, dtype=torch.int32)]
             x, dv, e0, e1 = (a.to(DEVICE) for a in args)
             nof, lg, ilg = (a.to(DEVICE) for a in stats)
 
@@ -687,7 +725,7 @@ def check_quantizer():
             got = [a.cpu() for a in kernel()]
             ref = [a.cpu() for a in plain()]
             same = all(torch.equal(g, r) for g, r in zip(got, ref))
-            variant = (f"int{bits}, {str(dt)[6:]} [{C}, {t}], plain on "
+            variant = (f"int{bits}, {str(dt)[6:]} [{rows}, {t}], plain on "
                        f"{plain_dev}")
             log(f"kernel quantize_hp_tpdf [{variant}]: bit-equal "
                 f"{same}, {int(got[3].sum())} clipped samples")
@@ -695,27 +733,127 @@ def check_quantizer():
                 raise SystemExit(f"chip_smoke: quantize_hp_tpdf [{variant}] "
                                  "differs from its plain version (or did "
                                  "not clip)")
-            if row is not None or dt != torch.float32 or t != 1024:
+            if bits != 24 or t not in (1024, 20000):
                 continue
-            # the plain version launches 25602 kernels a call: traces of
-            # three calls lost events in about half the tries, so one
-            ms, plain_ms, _ = _time_pair("quantize_hp_tpdf", variant, kernel,
-                                         plain, plain_reps=1)
+            ms = _device_ms(kernel)
             # x and dv in, q out, the five state vectors in and out
             nbytes = (_nbytes(x, dv) + 2 * _nbytes(e0, e1, nof, lg, ilg)
-                      + C * t * 4)
-            bound_ms, bound_by = _bound(nbytes, 10 * C * t)
-            # the serial chain: about six dependent operations of four
-            # cycles per sample at the H100's 1.755 GHz boost clock
-            chain_ms = t * 6 * 4 / 1.755e9 * 1e3
-            log(f"kernel quantize_hp_tpdf: bound {bound_ms:.5f} ms by "
-                f"{bound_by} ({nbytes / 1e6:.2f} MB); serial-chain bound "
-                f"{chain_ms:.4f} ms ({t} samples x 6 dependent ops x 4 "
-                "cycles at 1.755 GHz)")
-            row = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+                      + rows * t * 4)
+            bound_ms, bound_by = _bound(nbytes, 10 * rows * t)
+            # the serial chain: PERF.md's estimate of six dependent
+            # operations of four cycles at 1.755 GHz, and the SASS chain
+            # at the latencies and SM clock measured on this card
+            chain_ms = t * 6 * 4 / CLOCK_HZ * 1e3
+            name = str(dt)[6:]
+            sass = sum(n * lat[name][op] for op, n in K9_CHAIN[name].items())
+            log(f"kernel quantize_hp_tpdf [{variant}]: device {ms:.4f} ms"
+                f" = {ms / t * 1e6:.2f} ns, {ms / t * clock / 1e3:.1f} SM "
+                f"cycles a sample at {clock / 1e9:.3f} GHz; bound "
+                f"{bound_ms:.5f} ms by {bound_by} ({nbytes / 1e6:.2f} MB); "
+                f"serial-chain bounds {chain_ms:.4f} ms (6 dependent ops x "
+                f"4 cycles at 1.755 GHz) and {t * sass / clock * 1e3:.4f} ms "
+                f"(SASS chain {sass:.1f} cycles a sample: " + ", ".join(
+                    f"{n} x {op} {lat[name][op]:.2f}"
+                    for op, n in K9_CHAIN[name].items()) + ")")
+            if row is None:
+                # the plain version is timed by main() after every path
+                row = {"err": 0.0, "ms": ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "plain": (variant, functools.partial(
+                           DK.quantize_hp_tpdf_plain, x, dv, e0, e1, imin,
+                           imax, nof, lg, ilg))}
+    log_ptxas("quantize_kernel")
+    dump_sass("quantize_kernel")
     return row
+
+
+def chain_latency():
+    """({"float32" | "float64": {op: cycles}}, SM clock in Hz): the latency
+    of each operation on K9's serial chain on this card, one warp timing
+    dependent repetitions with clock64() (``csrc/chain_latency.cu``: op
+    then add, less the add alone), and the SM clock from the add chain's
+    cycles over its CUDA-event time."""
+    import torch
+
+    from bfir_tpu_torch.kernels import cuda_lib
+
+    lib = cuda_lib.load()
+    iters = 16384
+    lat, clock = {}, None
+    for dt in (torch.float32, torch.float64):
+        x = torch.tensor([0.3, 0.4, 0.5, 0.6, 0.37, 0.25], dtype=dt,
+                         device=DEVICE)
+        out = torch.empty(32, dtype=dt, device=DEVICE)
+        cyc = torch.empty(32, dtype=torch.int64, device=DEVICE)
+        per = []
+        for kind in range(4):
+            def call():
+                err = lib.bfir_chain_latency(
+                    kind, int(dt == torch.float64), x.data_ptr(),
+                    out.data_ptr(), cyc.data_ptr(), iters, 0,
+                    cuda_lib.stream_of(x))
+                cuda_lib.check(err, "chain_latency")
+
+            call()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            call()
+            b.record()
+            b.synchronize()
+            per.append(int(cyc.max()) / (16 * iters))
+            if clock is None:
+                clock = int(cyc.max()) / (a.elapsed_time(b) * 1e-3)
+        lat[str(dt)[6:]] = {"add": per[0], "trunc": per[1] - per[0],
+                            "max": per[2] - per[0],
+                            "select": per[3] - per[0]}
+    log("K9 chain latencies (cycles; csrc/chain_latency.cu): " + "; ".join(
+        f"{k}: " + ", ".join(f"{op} {v:.2f}" for op, v in d.items())
+        for k, d in lat.items()) + f"; SM clock {clock / 1e9:.3f} GHz")
+    return lat, clock
+
+
+def log_ptxas(fragment):
+    """Log ptxas's report (registers, spills, shared memory) of each entry
+    function whose name holds ``fragment``, from the build's log."""
+    from bfir_tpu_torch.kernels import cuda_lib
+
+    path = os.path.join(cuda_lib.BUILD_DIR,
+                        f"build-{cuda_lib._digest()}.log")
+    name = spill = None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1) if fragment in m.group(1) else None
+            elif name and "spill" in line:
+                spill = line.strip()
+            elif name and "Used" in line:
+                log(f"ptxas {name}: {line.split(':', 1)[1].strip()}; {spill}")
+                name = None
+
+
+def dump_sass(fragment):
+    """Write cuobjdump's SASS of the kernels whose name holds ``fragment``
+    to ``WORK/<fragment>.sass`` and log each one's instruction count."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from bfir_tpu_torch.kernels import cuda_lib
+
+    res = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", cuda_lib.library_path()],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        raise SystemExit(f"chip_smoke: cuobjdump failed: {res.stderr[-2000:]}")
+    funcs = [f for f in re.split(r"\n\s*Function : ", res.stdout)[1:]
+             if fragment in f.split("\n", 1)[0]]
+    path = os.path.join(WORK, f"{fragment}.sass")
+    with open(path, "w") as f:
+        f.write("".join(f"Function : {fn}\n" for fn in funcs))
+    for fn in funcs:
+        n = len(re.findall(r"/\*[0-9a-f]{4}\*/", fn))
+        log(f"SASS {fn.split()[0]}: {n} instructions")
+    log(f"SASS of {len(funcs)} functions written to {path}")
 
 
 def _impulse(seed, rows):
@@ -796,7 +934,9 @@ def _device_busy(fn, what, counts=None):
     GPU work it ran, kernels and copies, summed), how many kernels and
     copies (memcpy, memset) ran, and the largest device items by name;
     returns fn's result. ``counts``, a dict, receives "busy_ms",
-    "wall_ms", "kernels" and "copies"."""
+    "wall_ms", "kernels" and "copies". fn moves a stream on, so it is not
+    called again: where its trace is not whole (``_traced``), the device
+    numbers are logged as not measured and are None in ``counts``."""
     import torch
 
     def timed():
@@ -806,9 +946,14 @@ def _device_busy(fn, what, counts=None):
         return y, (time.perf_counter() - t0) * 1e3
 
     (y, wall), events, whole = _traced(timed)
-    if not whole:  # fn moves a stream on: it is not called again
-        raise SystemExit(f"chip_smoke: {what}: the profiled call's trace "
-                         "is not whole")
+    if not whole:
+        log(f"{what}: profiled call: {wall:.3f} ms wall; device busy not "
+            f"measured: the trace is not whole ({len(events)} device "
+            "events)")
+        if counts is not None:
+            counts.update(busy_ms=None, wall_ms=wall, kernels=None,
+                          copies=None)
+        return y
     by_name = {}
     n_kernels = n_copies = 0
     for e in events:
@@ -1366,13 +1511,17 @@ def _drive_steps(what, engines, x, ref, check=None):
         if yn.shape != x.shape or not np.isfinite(yn).all():
             raise SystemExit(f"chip_smoke: {what} {name} gave "
                              f"{yn.shape} or non-finite values")
-        dev_ms = counts["busy_ms"] / prof
+        if counts["busy_ms"] is None:
+            device = "device not measured"
+        else:
+            dev_ms = counts["busy_ms"] / prof
+            device = (f"{counts['kernels'] / prof:.2f} kernels and "
+                      f"{counts['copies'] / prof:.2f} copies per block, "
+                      f"device {dev_ms:.4f} ms/block = "
+                      f"{100 * dev_ms / walls[name][0]:.1f}% of that wall")
         log(f"{what} {name}: {walls[name][0]:.4f} ms/block wall (blocks "
             f"{warm}-{blocks - prof - 1}, C={C}, N={N}, {TAPS} taps), "
-            f"{counts['kernels'] / prof:.2f} kernels and "
-            f"{counts['copies'] / prof:.2f} copies per block, device "
-            f"{dev_ms:.4f} ms/block = {100 * dev_ms / walls[name][0]:.1f}% of "
-            f"that wall; max |y - {first}| / max|{first}| {diff:.3e}; "
+            f"{device}; max |y - {first}| / max|{first}| {diff:.3e}; "
             "launches " + ", ".join(f"{k} {n}" for k, n in launched.items()
                                     if n))
         _snr_gate(_shifted_snr_db(yn, ref), f"{what} {name}")
@@ -1539,6 +1688,15 @@ def main():
         if n == 0:
             raise SystemExit(f"chip_smoke: {name} never ran on the main paths")
     render_cli()
+    # K9's plain version launches 25602 kernels a call: a trace of that
+    # many makes later traces lose events (_traced), so it is timed after
+    # every other trace, over one call (three lost events in half the tries)
+    k9 = kernels["quantize_hp_tpdf"]
+    variant, plain = k9.pop("plain")
+    k9["plain_ms"] = _device_ms(plain, 1)
+    log(f"kernel quantize_hp_tpdf [{variant}]: plain {k9['plain_ms']:.4f} "
+        f"ms (profiler, 1 call), CUDA-event {_event_ms(plain, 1):.4f} ms; "
+        f"the kernel {k9['ms']:.4f} ms")
 
     rows = []
     for name, k in kernels.items():

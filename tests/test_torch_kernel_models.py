@@ -1,0 +1,347 @@
+"""The designs of K12 (``bfir_tpu_torch/csrc/mac_tail_hc.cu``) and K9
+(``bfir_tpu_torch/csrc/dither_q.cu``) modelled on the CPU, where no CUDA
+compiler runs.
+
+K12: a numpy model of the kernel's decomposition with its constants parsed
+from the CUDA source and its plan from the wrapper (``mac_tail_plan``):
+phase 1 deals warp items of 32 (channel, four-lane) pairs round-robin over
+the blocks of the grid and scatters each thread's MAC (partitions summed
+in order, whatever the kernel's unroll) into the k-major
+accumulator scratch [2Hp, Cs]; phase 2 walks the (channel tile, sample
+tile, k split) items, stages 16-row k-slices with the kernel's zero fill,
+and sums k in the kernel's order; phase 3 adds the partials in split
+order. The scratch starts as NaN, so a read of anything the kernel does
+not write (the accumulator's padding columns) would show in the output.
+Every item must be taken exactly once. The model runs in float64 against
+the port's plain version in float64 (1e-12 x max: the same sums in
+another order), and in float32 against the reference's Pallas kernel in
+interpret mode (1e-5 x max: float32 sums in another order).
+
+K9: a torch model of the kernel's loop (register windows, the branch-free
+body: the rounding as trunc(d) - (d < 0), the clip as a max and a min in
+float32 and a select in float64, the statistics as selects, |q| from the
+int q)
+that must equal the plain version bit for bit in all six outputs, in
+float32 and float64, on crafted samples (negative integer-valued d, -0.0,
+d = imin, d = imax, d just above imax, d in (imin, imin + 1), runs that
+clip and un-clip) and on random clipping input."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from bfir_tpu.kernels import spectrum_mac as JK
+from bfir_tpu_torch.kernels import dither_kernel as DK
+from bfir_tpu_torch.kernels import spectrum_mac as K
+
+torch.set_num_threads(1)
+
+CSRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_compiled_graphs():
+    """Drop this module's compiled JAX graphs when it ends (see
+    tests/test_torch_kernels.py)."""
+    yield
+    jax.clear_caches()
+
+
+def _constants(name):
+    """``constexpr int`` values of a CUDA source, by name."""
+    with open(os.path.join(CSRC, name)) as f:
+        text = f.read()
+    return {k: v for k, v in re.findall(
+        r"constexpr int (\w+) = ([^;]+);", text)}
+
+
+def _k12():
+    k = _constants("mac_tail_hc.cu")
+    threads = int(k["kThreads"])
+    return (threads, threads // 32, int(k["kTile"]), int(k["kSlice"]),
+            int(k["kUnroll"]))
+
+
+THREADS, WARPS, TILE, SLICE, UNROLL = _k12()
+K12_P = 7  # one group of UNROLL partitions' loads and a remainder
+
+
+def test_k12_constants_match_the_wrapper():
+    assert (TILE, SLICE) == (K._TAIL_TILE, K._TAIL_SLICE)
+    assert K12_P > UNROLL and K12_P % UNROLL
+    assert SLICE * TILE == 4 * THREADS  # one float4 a thread a slice
+
+
+@pytest.mark.parametrize("c", [1, 5, 64, 65, 128])
+@pytest.mark.parametrize("hp", [4, 124, 128, 1024, 2048])
+@pytest.mark.parametrize("grid", [1, 7, 264, 396])
+def test_k12_plan_meets_the_entry_point_checks(c, hp, grid):
+    """The plan's splits cover the k range 2 Hp with whole slices and no
+    empty split (the checks of ``bfir_mac_tail_hc``), and make no more
+    items than the grid unless one split already does."""
+    splits, ks, floats = K.mac_tail_plan(c, hp, grid)
+    tiles = -(-c // TILE) * -(-hp // TILE)
+    assert splits >= 1 and ks >= SLICE and ks % SLICE == 0
+    assert splits * ks >= 2 * hp > (splits - 1) * ks
+    assert splits == 1 or tiles * splits <= grid
+    cs = -(-c // TILE) * TILE
+    assert floats == 2 * hp * cs + (splits * c * hp if splits > 1 else 0)
+
+
+def k12_model(ring, coeff, wr, wi, pos, grid):
+    """csrc/mac_tail_hc.cu's three phases on numpy arrays (float64 or
+    float32 throughout) for a grid of ``grid`` blocks -> out [C, Hp]."""
+    p, c2, hp = ring.shape
+    c = c2 // 2
+    dt = ring.dtype
+    splits, ks, floats = K.mac_tail_plan(c, hp, grid)
+    cs = -(-c // TILE) * TILE
+    scratch = np.full(floats, np.nan, dtype=dt)
+    acc = scratch[:2 * hp * cs].reshape(2 * hp, cs)
+    part = scratch[2 * hp * cs:].reshape(splits, c, hp) if splits > 1 else None
+    out = np.full((c, hp), np.nan, dtype=dt)
+
+    # phase 1: warp item j -> items 32 j .. 32 j + 31, block-round-robin
+    groups = hp // 4
+    items = c * groups
+    witems = -(-items // 32)
+    seen = np.zeros(items, dtype=int)
+    for b in range(grid):
+        for w in range(WARPS):
+            for j in range(b + grid * w, witems, grid * WARPS):
+                i = j * 32 + np.arange(32)
+                i = i[i < items]
+                seen[i] += 1
+                ch = (i // groups)[:, None]
+                lanes = ((i % groups) * 4)[:, None] + np.arange(4)
+                ar = np.zeros(lanes.shape, dtype=dt)
+                ai = np.zeros(lanes.shape, dtype=dt)
+                for q in range(p):
+                    slot = (pos - q) % p
+                    rr, ri = ring[slot, ch, lanes], ring[slot, c + ch, lanes]
+                    cr, ci = coeff[q, ch, lanes], coeff[q, c + ch, lanes]
+                    lane0 = lanes == 0  # (DC.re, Nyquist.re): two products
+                    ar += np.where(lane0, cr * rr, cr * rr - ci * ri)
+                    ai += np.where(lane0, ci * ri, cr * ri + ci * rr)
+                acc[lanes, ch] = ar
+                acc[hp + lanes, ch] = ai
+    assert (seen == 1).all()
+
+    # phase 2: item w = (tile w // splits, split w % splits)
+    nct, ntt = -(-c // TILE), -(-hp // TILE)
+    n_items = nct * ntt * splits
+    taken = np.zeros(n_items, dtype=int)
+    basis = np.concatenate([wr, wi])  # row k < Hp: wr[k], else wi[k - Hp]
+    for b in range(grid):
+        for w in range(b, n_items, grid):
+            taken[w] += 1
+            split, tile = w % splits, w // splits
+            c0, t0 = (tile // ntt) * TILE, (tile % ntt) * TILE
+            kb = split * ks
+            ke = min(2 * hp, kb + ks)
+            o = np.zeros((TILE, TILE), dtype=dt)
+            cols = t0 + np.arange(TILE)
+            live = cols < hp  # whole float4 groups, hp % 4 == 0
+            for k0 in range(kb, ke, SLICE):
+                rows = k0 + np.arange(SLICE)
+                on = rows < ke
+                sa = np.zeros((SLICE, TILE), dtype=dt)
+                sb = np.zeros((SLICE, TILE), dtype=dt)
+                sa[on] = acc[rows[on], c0:c0 + TILE]
+                sb[np.ix_(on, live)] = basis[np.ix_(rows[on], cols[live])]
+                for kk in range(SLICE):  # the kernel's k order
+                    o += np.outer(sa[kk], sb[kk])
+            ch = c0 + np.arange(TILE)
+            keep = ch < c
+            dst = out if splits == 1 else part[split]
+            dst[np.ix_(ch[keep], cols[live])] = o[np.ix_(keep, live)]
+    assert (taken == 1).all()
+
+    # phase 3: the partials in split order
+    if splits > 1:
+        out = part[0].copy()
+        for sp in range(1, splits):
+            out = out + part[sp]
+    return out
+
+
+# (Hp, block length n): the zero-padded basis of blocks of 64 at Hp = 128,
+# Hp = h at 256 and at 2048
+K12_SHAPES = [(128, 64), (256, 256), (2048, 2048)]
+
+
+def _k12_inputs(hp, c, p, seed):
+    rng = np.random.default_rng(seed)
+    ring = rng.standard_normal((p, 2 * c, hp))
+    coeff = rng.standard_normal((p, 2 * c, hp))
+    return ring, coeff
+
+
+@pytest.mark.parametrize("hp,n", K12_SHAPES)
+@pytest.mark.parametrize("grid", [7, 264])
+def test_k12_model_matches_plain_float64(hp, n, grid):
+    """C = 5 (the last channel tile and warp item ragged), P = 7 (the
+    MAC's unroll does not divide it), pos = 1; float64 against the plain
+    version in float64."""
+    c, p, pos = 5, K12_P, 1
+    ring, coeff = _k12_inputs(hp, c, p, 30 + hp)
+    wr, wi = (t.numpy() for t in K._tail_basis(n, hp, torch.float64,
+                                               torch.device("cpu")))
+    got = k12_model(ring, coeff, wr, wi, pos, grid)
+    ref = K.mac_tail_hc_plain(torch.from_numpy(ring), torch.from_numpy(coeff),
+                              torch.from_numpy(wr), torch.from_numpy(wi),
+                              pos).numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
+    if hp > n:
+        assert not got[:, n:].any()  # zero basis columns beyond h
+
+
+@pytest.mark.parametrize("hp,n", K12_SHAPES)
+def test_k12_model_and_port_match_pallas(hp, n):
+    """float32: the model (grid 264) and the port's wrapper on CPU tensors
+    against ``mac_tail_pallas_hc`` in interpret mode, C = 5, P = 7."""
+    c, p, pos = 5, K12_P, 2
+    ring, coeff = (t.astype(np.float32)
+                   for t in _k12_inputs(hp, c, p, 40 + hp))
+    jwr, jwi = JK._tail_basis(n, hp, "float32")
+    jo = np.asarray(JK.mac_tail_pallas_hc(
+        jnp.asarray(ring), jnp.asarray(coeff), jwr, jwi, jnp.int32(pos),
+        interpret=True))
+    wr, wi = K._tail_basis(n, hp, torch.float32, torch.device("cpu"))
+    np.testing.assert_array_equal(wr.numpy(), np.asarray(jwr))
+    got = k12_model(ring, coeff, wr.numpy(), wi.numpy(), pos, 264)
+    port = K.mac_tail_hc(torch.from_numpy(ring), torch.from_numpy(coeff), wr,
+                         wi, pos).numpy()
+    for out in (got, port):
+        assert out.dtype == np.float32 and out.shape == (c, hp)
+        np.testing.assert_allclose(out, jo, rtol=0,
+                                   atol=1e-5 * np.abs(jo).max())
+
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+WINDOW_BYTES = int(_constants("dither_q.cu")["kWindowBytes"])
+
+
+def k9_model(x, dv, e0, e1, imin, imax, nof, lg, ilg):
+    """csrc/dither_q.cu's loop on CPU tensors: windows of
+    ``WINDOW_BYTES`` of each row, the body branch-free -> the six outputs
+    of ``quantize_hp_tpdf_plain``."""
+    c, n = x.shape
+    w = WINDOW_BYTES // x.element_size()
+    lo, hi = x.new_tensor(imin), x.new_tensor(imax)
+    q = torch.zeros((c, n), dtype=torch.int32)
+    for t0 in range(0, n, w):
+        xw, dw = x[:, t0:t0 + w], dv[:, t0:t0 + w]  # the register window
+        for j in range(xw.shape[1]):
+            xp = (xw[:, j] + e0) - e1
+            d = xp + dw[:, j]
+            r = torch.trunc(d) - torch.where(d < 0, 1.0, 0.0).to(d.dtype)
+            clip_lo = d <= lo
+            clipped = clip_lo | (d > hi)
+            if x.dtype == torch.float32:  # max and min
+                qv = torch.minimum(torch.maximum(r, lo), hi)
+            else:  # a select on the clip flags
+                qv = torch.where(clipped, torch.where(clip_lo, lo, hi), r)
+            qi = qv.to(torch.int32)
+            aq = qi.to(torch.int64).abs().clamp(max=2 ** 31 - 1).to(
+                torch.int32)
+            ad = d.abs()
+            nof = nof + clipped.to(torch.int32)
+            lg = torch.where(clipped & (ad > lg), ad, lg)
+            ilg = torch.where(~clipped & (aq > ilg), aq, ilg)
+            q[:, t0 + j] = qi
+            e0, e1 = xp - qv, e0
+    return q, e0, e1, nof, lg, ilg
+
+
+def _bits(t):
+    """Bit patterns (so that -0.0 and 0.0 differ)."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def _crafted(dtype, bits, n):
+    """Rows whose first sample sets d exactly (e0 = e1 = 0, dv = 0, so d =
+    x), a row with d = -0.0, then runs that clip and un-clip, each row
+    continued by random clipping input with dither values."""
+    npdt = np.dtype(dtype)
+    imin, imax = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    lo, hi = npdt.type(imin), npdt.type(imax)
+    first = [-1.0, -2.0, -100.0, float(lo) + 1, lo, hi,
+             np.nextafter(hi, npdt.type(np.inf)), hi + 0.5,
+             np.nextafter(lo, npdt.type(np.inf)), lo + 0.25, lo + 0.75,
+             np.nextafter(lo, npdt.type(-np.inf)), hi - 0.5, 0.5, -0.5,
+             0.0, 2.0 * hi, 2.0 * lo]
+    rows = len(first) + 3
+    rng = np.random.default_rng(bits + n)
+    x = rng.uniform(-1.2, 1.2, (rows, n)) * (imax + 1)
+    dv = 0.5 + (np.diff(rng.integers(-128, 128, (rows, n + 1)), axis=1)
+                + 1.0) / 255.0
+    e0 = rng.uniform(-1.5, 1.5, rows)
+    e1 = rng.uniform(-1.5, 1.5, rows)
+    k = len(first)
+    x[:k, 0] = first
+    dv[:k, 0] = 0.0
+    e0[:k] = 0.0
+    e1[:k] = 0.0
+    # d = -0.0: xp = (-0.0 + -0.0) - 0.0 = -0.0, d = -0.0 + -0.0
+    x[k, 0], e0[k], e1[k], dv[k, 0] = -0.0, -0.0, 0.0, -0.0
+    # runs that clip and un-clip, without dither
+    x[k + 1] = np.resize([2.0 * hi, 2.0 * hi, 3.0, -3.0, 2.0 * lo, 2.0 * lo,
+                          0.25, float(hi), float(lo), -7.0], n)
+    dv[k + 1] = 0.0
+    x[k + 2] = np.resize([1.5 * hi, 0.0, 1.5 * lo, 0.0], n)
+    x, dv, e0, e1 = (torch.from_numpy(np.asarray(a, dtype=npdt))
+                     for a in (x, dv, e0, e1))
+    assert _bits(e0[k]).item() != 0  # -0.0 survived
+    stats = (torch.zeros(rows, dtype=torch.int32),
+             torch.zeros(rows, dtype=getattr(torch, dtype)),
+             torch.zeros(rows, dtype=torch.int32))
+    return x, dv, e0, e1, float(imin), float(imax), stats
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bits", [24, 16], ids=["int24", "int16"])
+@pytest.mark.parametrize("n", [1, 37, 64])
+def test_k9_model_matches_plain_bit_for_bit(dtype, bits, n):
+    """n = 37: a full window and a ragged one in float64 (W = 16), one
+    ragged window in float32 (W = 32); n = 64: whole windows."""
+    x, dv, e0, e1, imin, imax, stats = _crafted(dtype, bits, n)
+    got = k9_model(x, dv, e0, e1, imin, imax, *stats)
+    ref = DK.quantize_hp_tpdf_plain(x, dv, e0, e1, imin, imax, *stats)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(_bits(g), _bits(r))
+    assert DK.quantize_hp_tpdf.launches == 0
+    if n > 1:
+        assert int(ref[3].sum()) > 0 and int(ref[5].max()) > 0  # both sides
+
+
+def test_k9_crafted_values_reach_their_cases():
+    """The crafted first samples give the d they name: d = -0.0 keeps its
+    sign into q (floor(-0.0) = -0.0, so e0 = -0.0 - -0.0 = +0.0), d = imin
+    and d just above imax clip, d in (imin, imin + 1) does not."""
+    x, dv, e0, e1, imin, imax, stats = _crafted("float32", 24, 1)
+    q, e0n, _, nof, _, ilg = DK.quantize_hp_tpdf_plain(
+        x, dv, e0, e1, imin, imax, *stats)
+    lo_row, hi_row, above_row, inside_row = 4, 5, 6, 8
+    assert nof[lo_row] == 1 and q[lo_row, 0] == int(imin)
+    assert nof[hi_row] == 0 and q[hi_row, 0] == int(imax)
+    assert nof[above_row] == 1 and q[above_row, 0] == int(imax)
+    assert nof[inside_row] == 0 and q[inside_row, 0] == int(imin)
+    assert q[0, 0] == -2 and q[1, 0] == -3  # negative integers: ceil - 1
+    assert q[18, 0] == 0 and _bits(e0n[18]).item() == 0 and ilg[18] == 0

@@ -41,8 +41,12 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _P],
     # hr, hi, in_stride, out, tw, rows, h, stream
     "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _P],
-    # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, b_chunk, stream
-    "bfir_corr_mac": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, variant,
+    # b_chunk, grid, stream
+    "bfir_corr_mac": [_P, _I, _P, _I, _P, _P] + [_I] * 8 + [_P],
+    # variant, h_kind, c_kind, per_sm (out), sms (out)
+    "bfir_corr_mac_occupancy": [_I, _I, _I, ctypes.POINTER(_I),
+                                ctypes.POINTER(_I)],
     # ring, coeff, yr, yi, P, C, fp, lanes, pos, stream
     "bfir_mac_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ring2, coeff_rk, yr, yi, P, C, fp, lanes, pos, k, stream

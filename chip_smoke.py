@@ -341,7 +341,6 @@ def check_kernels():
     tail call); launches here are not counted."""
     import torch
 
-    from bfir_tpu_torch.kernels import corr_mac as CM
     from bfir_tpu_torch.kernels import fft_fused as FF
     from bfir_tpu_torch.kernels import spectrum_mac as K
 
@@ -358,7 +357,7 @@ def check_kernels():
     def run(name, variant, kernel, plain, timed=None, library=None):
         """``timed``: (bytes, flops) of the call when it is the variant the
         main path runs; its times are then recorded (and added to an
-        earlier timed variant's: K7's head and tail)."""
+        earlier timed variant's: K7's head and tail) and returned."""
         ab, rel = _err(kernel(), plain())
         log(f"kernel {name} [{variant}]: max_abs_err {ab:.3e} "
             f"(rel {rel:.2e})")
@@ -383,6 +382,7 @@ def check_kernels():
         log(f"kernel {name}: bound {row['bound_ms']:.4f} ms by "
             f"{row['bound_by']} ({row['bytes'] / 1e6:.1f} MB, "
             f"{row['flops'] / 1e9:.2f} GFLOP)")
+        return ms, plain_ms, lib_ms
 
     def mac_cost(ring, coeff, p, lanes, width):
         """Bytes and flops of a ring MAC over ``lanes`` of ``width``: the
@@ -465,16 +465,7 @@ def check_kernels():
                                                         band * bl, bl),
                     mac_cost(tuple(ring), tuple(coeff), pt, bl, ht)
                     if cs == C and bits == 24 and band == 3 else None)
-    # K7 at G = 8: the head call (B = G*R = 64) and the tail call (B = G)
-    for where, p, hp, b in (("head", ph, hh, 64), ("tail", pt, ht, 8)):
-        for cs in (C, 1):
-            hist, coeff = rn(p - 1 + b, 2 * C, hp), rn(p, 2 * cs, hp)
-            run("corr_mac", f"{where} hist [{p - 1 + b}, {2 * C}, {hp}], "
-                f"coeff rows {2 * cs}",
-                lambda: CM.corr_mac(hist, coeff, b),
-                lambda: CM.corr_mac_plain(hist, coeff, b),
-                (_nbytes(hist, coeff) + 2 * b * C * hp * 4,
-                 8 * b * p * C * hp) if cs == C else None)
+    out["corr_mac"]["also"] = check_corr_mac(run, rn)
     # K8: the packed engine's MAC at the flagship, P = 128, Fp = 1152, over
     # the N + 1 live bins (the engine's rows are zero beyond them)
     pp, fp, nf = TAPS // N, 1152, N + 1
@@ -491,6 +482,82 @@ def check_kernels():
         out[name]["also"] = at
     out["quantize_hp_tpdf"].update(check_quantizer())
     return out
+
+
+def check_corr_mac(run, rn):
+    """K7 at G = 8, the head call (P = 16, B = G*R = 64, Hp = N) and the
+    tail call (P = 14, B = G, Hp = 8N), with per-channel and shared
+    coefficients: each call timed alone (the row's times are their sum)
+    and logged with its bytes, bound and share of it beside a ``copy_``
+    that moves the same bytes, and the plan each shape takes; then,
+    untimed, the edges: P = 40 (the register window walked three times),
+    B = 1, a ragged last lane tile (Hp = 1000), bf16 history and bf16
+    coefficients at both shapes, and few channels (B split). Returns the
+    tail call's times for the row's "also"."""
+    import torch
+
+    from bfir_tpu_torch.kernels import corr_mac as CM
+
+    def plan(hist, coeff, b):
+        if hist.device.type != "cuda":
+            return "plain version (CPU)"
+        pl = CM.plan_for(hist, coeff, b)
+        threads, lanes, stages = CM._VARIANTS[pl.variant]
+        return (f"variant {pl.variant} ({threads} threads x {lanes} lanes, "
+                f"{stages} stages, tile {pl.tile}), {pl.items} items "
+                f"(B in {pl.nsplit} of {pl.b_chunk}), grid {pl.grid}; "
+                f"streams {pl.streamed / 1e6:.2f} MB, inputs "
+                f"{pl.inputs / 1e6:.2f} MB, re-read "
+                f"{(pl.streamed - pl.inputs) / 1e6:.2f} MB")
+
+    def check(where, p, hp, b, cs, hdt=torch.float32, cdt=torch.float32,
+              timed=False, ch=C):
+        hist = rn(p - 1 + b, 2 * ch, hp).to(hdt)
+        coeff = rn(p, 2 * cs, hp).to(cdt)
+        variant = (f"{where} hist [{p - 1 + b}, {2 * ch}, {hp}] {hdt}, "
+                   f"coeff [{p}, {2 * cs}, {hp}] {cdt}")
+        cost = (_nbytes(hist, coeff) + 2 * b * ch * hp * 4,
+                8 * b * p * ch * hp)
+        ms = run("corr_mac", variant, lambda: CM.corr_mac(hist, coeff, b),
+                 lambda: CM.corr_mac_plain(hist, coeff, b),
+                 cost if timed else None)
+        log(f"kernel corr_mac [{variant}]: plan {plan(hist, coeff, b)}")
+        if not timed:
+            return None
+        bound, by = _bound(*cost)
+        # yardstick: a device-to-device copy that moves the same bytes,
+        # half read and half written
+        src = torch.empty(cost[0] // 8, device=hist.device)
+        dst = torch.empty_like(src)
+        copy_ms = _device_ms(lambda: dst.copy_(src))
+        log(f"kernel corr_mac [{where}]: {ms[0]:.4f} ms for "
+            f"{cost[0] / 1e6:.1f} MB, bound {bound:.4f} ms by {by}: "
+            f"{100 * bound / ms[0]:.1f}% of the bound; a copy_ moving the "
+            f"same bytes {copy_ms:.4f} ms ({cost[0] / copy_ms / 1e9:.3f} "
+            f"TB/s), the kernel {100 * copy_ms / ms[0]:.1f}% of its rate")
+        return {"shape": variant, "ms": ms[0], "plain_ms": ms[1],
+                "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+    ph, pt, hh, ht = 16, 14, N, 8 * N
+    head = check("head", ph, hh, 64, C, timed=True)
+    tail = check("tail", pt, ht, 8, C, timed=True)
+    log(f"kernel corr_mac: head {head['ms']:.4f} + tail {tail['ms']:.4f} = "
+        f"{head['ms'] + tail['ms']:.4f} ms (the previous design's: "
+        f"0.1732), bound {head['bound_ms']:.4f} + {tail['bound_ms']:.4f} = "
+        f"{head['bound_ms'] + tail['bound_ms']:.4f} ms (0.0787)")
+    for where, p, hp, b in (("head", ph, hh, 64), ("tail", pt, ht, 8)):
+        check(where, p, hp, b, 1)
+        for hdt, cdt in ((torch.bfloat16, torch.float32),
+                         (torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.bfloat16)):
+            check(where, p, hp, b, C, hdt, cdt)
+    check("P 40", 40, hh, 64, C)
+    check("B 1", ph, hh, 1, C)
+    check("ragged", pt, 1000, 8, C)
+    check("ragged, shared", ph, 1000, 64, 1)
+    check("2 channels", ph, 256, 64, 2, ch=2)
+    log_ptxas("corr_mac_kernel")
+    return tail
 
 
 def check_uniform_macs(run, mac_cost, ring, coeff):

@@ -1,5 +1,6 @@
-"""The designs of K12 (``bfir_tpu_torch/csrc/mac_tail_hc.cu``) and K9
-(``bfir_tpu_torch/csrc/dither_q.cu``) modelled on the CPU, where no CUDA
+"""The designs of K12 (``bfir_tpu_torch/csrc/mac_tail_hc.cu``), K9
+(``bfir_tpu_torch/csrc/dither_q.cu``) and K7
+(``bfir_tpu_torch/csrc/corr_mac.cu``) modelled on the CPU, where no CUDA
 compiler runs.
 
 K12: a numpy model of the kernel's decomposition with its constants parsed
@@ -24,7 +25,24 @@ int q)
 that must equal the plain version bit for bit in all six outputs, in
 float32 and float64, on crafted samples (negative integer-valued d, -0.0,
 d = imin, d = imax, d just above imax, d in (imin, imin + 1), runs that
-clip and un-clip) and on random clipping input."""
+clip and un-clip) and on random clipping input.
+
+K7: a numpy model of the kernel's decomposition with its register window
+and launch variants parsed from the CUDA source and its plan from the
+wrapper (``corr_mac_plan``): items dealt round-robin over the persistent
+grid, each block's row tiles pushed by its producer in the kernel's order
+into an S-stage ring (at most S ahead of the consumers, a stage refilled
+only after it was read), the register window indexed as the kernel
+indexes it, a thread's first lane summing the four real products apart
+and combining them by the lane-0 law once an output (its other lanes
+accumulating the complex product), and further tap
+chunks (P > window) added into the outputs. Tiles are NaN beyond the
+live lanes and the outputs start as NaN, so a dead lane stored or an
+output never written would show. Every output has one owner (block,
+thread) and is written once per tap chunk. The model runs in float64
+against the port's plain version in float64 (1e-12 x max: the same sums
+in another order) and in float32 against the reference's Pallas kernel
+in interpret mode (1e-5 x max)."""
 
 import os
 import re
@@ -36,7 +54,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from bfir_tpu.kernels import corr_mac as JCM
 from bfir_tpu.kernels import spectrum_mac as JK
+from bfir_tpu_torch.kernels import corr_mac as CM
 from bfir_tpu_torch.kernels import dither_kernel as DK
 from bfir_tpu_torch.kernels import spectrum_mac as K
 
@@ -345,3 +365,206 @@ def test_k9_crafted_values_reach_their_cases():
     assert nof[inside_row] == 0 and q[inside_row, 0] == int(imin)
     assert q[0, 0] == -2 and q[1, 0] == -3  # negative integers: ceil - 1
     assert q[18, 0] == 0 and _bits(e0n[18]).item() == 0 and ilg[18] == 0
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+def _k7():
+    with open(os.path.join(CSRC, "corr_mac.cu")) as f:
+        text = f.read()
+    table = re.search(r"kVariants\[\] = \{(.*?)\};", text, re.S).group(1)
+    variants = tuple(tuple(int(x) for x in t.split(","))
+                     for t in re.findall(r"\{([^{}]*)\}", table))
+    return int(_constants("corr_mac.cu")["kQW"]), variants
+
+
+QW, VARIANTS = _k7()
+
+
+def test_k7_constants_match_the_wrapper():
+    assert QW == CM._QW and VARIANTS == CM._VARIANTS
+    for threads, lanes, stages in VARIANTS:
+        assert threads % 32 == 0 and lanes in (1, 2) and stages >= 2
+        assert threads * lanes * 4 % 16 == 0  # whole chunks a segment
+
+
+def _k7_tiles(hist, coeff, b, plan, items):
+    """The producer of one block: each row tile (re, im) of its items in
+    the kernel's order, over ``plan.tile`` lanes, NaN past the live
+    lanes."""
+    _, c2, hp = hist.shape
+    p = coeff.shape[0]
+    c, cs = c2 // 2, coeff.shape[1] // 2
+    t = plan.tile
+
+    def tile(plane, row, half, t0):
+        seg = np.full((2, t), np.nan, dtype=plane.dtype)
+        n = min(t, hp - t0)
+        seg[0, :n] = plane[row, half, t0:t0 + n]
+        seg[1, :n] = plane[row, half + plane.shape[1] // 2, t0:t0 + n]
+        return seg
+
+    for w in items:
+        ch, t0, b0, b1 = _k7_item(w, plan, c, hp, b)
+        cc = 0 if cs == 1 else ch
+        for q0 in range(0, p, QW):
+            for k in range(min(QW, p - q0)):
+                yield tile(coeff, q0 + k, cc, t0)
+            base = p - 1 - q0
+            for r in range(max(0, base + b0 - QW + 1), base + b1):
+                yield tile(hist, r, ch, t0)
+
+
+def _k7_item(w, plan, c, hp, b):
+    """Item w -> (channel, first lane, b0, b1): b split fastest, then
+    channel, then lane tile."""
+    rest = w // plan.nsplit
+    b0 = w % plan.nsplit * plan.b_chunk
+    return rest % c, rest // c * plan.tile, b0, min(b, b0 + plan.b_chunk)
+
+
+def k7_model(hist, coeff, b, plan):
+    """csrc/corr_mac.cu on numpy arrays (float64 or float32 throughout)
+    under ``plan`` -> (yr, yi) [B, C, Hp]."""
+    _, c2, hp = hist.shape
+    p = coeff.shape[0]
+    c = c2 // 2
+    dt = hist.dtype
+    threads, lanes, stages = VARIANTS[plan.variant]
+    t = plan.tile
+    assert t == threads * lanes
+    yr = np.full((b, c, hp), np.nan, dtype=dt)
+    yi = np.full((b, c, hp), np.nan, dtype=dt)
+    owner = np.full((b, c, hp), -1)
+    writes = np.zeros((b, c, hp), dtype=int)
+    taken = np.zeros(plan.items, dtype=int)
+    thread = np.arange(t) // lanes
+    for g in range(plan.grid):
+        items = range(g, plan.items, plan.grid)
+        producer = _k7_tiles(hist, coeff, b, plan, items)
+        ring = [None] * stages  # (tile number, tile)
+        state = {"pushed": 0, "read": 0}
+
+        def pop():
+            while state["pushed"] < state["read"] + stages:
+                tile = next(producer, None)
+                if tile is None:
+                    break
+                slot = state["pushed"] % stages
+                assert ring[slot] is None or ring[slot][0] < state["read"]
+                ring[slot] = (state["pushed"], tile)
+                state["pushed"] += 1
+            j, tile = ring[state["read"] % stages]
+            assert j == state["read"]
+            state["read"] += 1
+            return tile
+
+        for w in items:
+            taken[w] += 1
+            ch, t0, b0, b1 = _k7_item(w, plan, c, hp, b)
+            lane = t0 + np.arange(t)
+            live = thread * lanes < min(t, hp - t0)
+            lane0 = lane == 0
+            first = np.arange(t) % lanes == 0  # a thread's first lane
+            for q0 in range(0, p, QW):
+                qn = min(QW, p - q0)
+                cr = np.zeros((QW, t), dtype=dt)
+                ci = np.zeros((QW, t), dtype=dt)
+                for k in range(qn):
+                    cr[k], ci[k] = pop()
+                base = p - 1 - q0
+                wr = np.zeros((QW, t), dtype=dt)
+                wi = np.zeros((QW, t), dtype=dt)
+                for s in range(1, QW):
+                    if base + b0 - QW + s >= 0:
+                        wr[s], wi[s] = pop()
+                for bb in range(b0, b1, QW):
+                    for u in range(min(QW, b1 - bb)):
+                        wr[u], wi[u] = pop()
+                        sums = np.zeros((4, t), dtype=dt)
+                        cx = np.zeros((2, t), dtype=dt)
+                        for k in range(QW):
+                            s = (u - k) % QW
+                            sums += (cr[k] * wr[s], ci[k] * wi[s],
+                                     cr[k] * wi[s], ci[k] * wr[s])
+                            cx[0] = cx[0] + cr[k] * wr[s] - ci[k] * wi[s]
+                            cx[1] = cx[1] + cr[k] * wi[s] + ci[k] * wr[s]
+                        ar = np.where(first, sums[0] - sums[1], cx[0])
+                        ai = np.where(first, sums[2] + sums[3], cx[1])
+                        ar = np.where(lane0, sums[0], ar)
+                        ai = np.where(lane0, sums[1], ai)
+                        bi, li = bb + u, lane[live]
+                        who = g * threads + thread[live]
+                        was = owner[bi, ch, li]
+                        assert ((was == -1) | (was == who)).all()
+                        owner[bi, ch, li] = who
+                        writes[bi, ch, li] += 1
+                        if q0:
+                            yr[bi, ch, li] = yr[bi, ch, li] + ar[live]
+                            yi[bi, ch, li] = yi[bi, ch, li] + ai[live]
+                        else:
+                            yr[bi, ch, li] = ar[live]
+                            yi[bi, ch, li] = ai[live]
+        assert next(producer, None) is None  # the producer ran dry
+        assert state["read"] == state["pushed"]
+    assert (taken == 1).all()
+    assert (writes == -(-p // QW)).all()
+    return yr, yi
+
+
+# (P, B, C, Cs, Hp): P > window with B < window and a ragged last lane
+# tile; the flagship head's P and B with a shared filter; the tail's P and
+# B, ragged; B = 1; three blocks of outputs past a window
+K7_SHAPES = [(40, 5, 3, 3, 200), (16, 64, 2, 1, 256), (14, 8, 3, 1, 136),
+             (5, 1, 2, 2, 128), (3, 49, 2, 2, 64)]
+
+
+def _k7_inputs(p, b, c, cs, hp, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((p - 1 + b, 2 * c, hp)),
+            rng.standard_normal((p, 2 * cs, hp)))
+
+
+@pytest.mark.parametrize("variant", range(len(VARIANTS)))
+@pytest.mark.parametrize("grid", ["persistent", "wide"])
+@pytest.mark.parametrize("shape", K7_SHAPES,
+                         ids=["p40-b5-ragged", "head-shared", "tail-ragged",
+                              "b1", "p3-b49"])
+def test_k7_model_matches_plain_float64(shape, grid, variant):
+    """"persistent": one block on one SM, fewer blocks than items, so
+    each block walks several items through its ring; "wide": 132 SMs, so
+    B splits wherever the items leave SMs idle."""
+    p, b, c, cs, hp = shape
+    per_sm, sms = (1, 1) if grid == "persistent" else (4, 132)
+    plan = CM.corr_mac_plan(p, b, c, cs, hp, 8, 8, per_sm, sms, variant)
+    if grid == "persistent":
+        assert plan.nsplit == 1 and plan.grid < plan.items
+    hist, coeff = _k7_inputs(p, b, c, cs, hp, 50 + p + b)
+    got = k7_model(hist, coeff, b, plan)
+    ref = CM.corr_mac_plain(torch.from_numpy(hist), torch.from_numpy(coeff),
+                            b)
+    for g, r in zip(got, ref):
+        r = r.numpy()
+        assert r.dtype == np.float64 and np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-12 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("shape", K7_SHAPES[:3],
+                         ids=["p40-b5-ragged", "head-shared", "tail-ragged"])
+def test_k7_model_matches_pallas_float32(shape):
+    """float32: the model (variant 0, the wide grid) against
+    ``corr_mac_pallas`` in interpret mode."""
+    p, b, c, cs, hp = shape
+    hist, coeff = (x.astype(np.float32)
+                   for x in _k7_inputs(p, b, c, cs, hp, 60 + p + b))
+    jr, ji = JCM.corr_mac_pallas(jnp.asarray(hist), jnp.asarray(coeff), b,
+                                 interpret=True)
+    plan = CM.corr_mac_plan(p, b, c, cs, hp, 4, 4, 4, 132, 0)
+    got = k7_model(hist, coeff, b, plan)
+    for g, r in zip(got, (np.asarray(jr), np.asarray(ji))):
+        assert g.dtype == np.float32 and g.shape == r.shape
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max())

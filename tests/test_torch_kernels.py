@@ -181,13 +181,27 @@ def test_corr_mac_bf16_history_matches_nubatch():
     _close(ti, ni)
 
 
-def test_corr_mac_b_chunk():
-    """The CUDA launch's b split: multiples of 16, at least 32 when split,
-    split only while the lane x channel grid leaves SMs idle."""
-    assert CM._b_chunk(64, 256) == 32  # flagship head: 4 x 64 lane blocks
-    assert CM._b_chunk(8, 2048) == 16  # flagship tail
-    assert CM._b_chunk(64, 4096) == 64
-    assert CM._b_chunk(5, 1) == 16
+def test_corr_mac_plan():
+    """The CUDA launch's plan at the flagship's head and tail calls (every
+    byte read once, the grid occupancy x SMs capped at the items), B split
+    while the items leave SMs idle, and the entry point's refusals."""
+    for p, b, hp in ((16, 64, 1024), (14, 8, 8192)):
+        plan = CM.corr_mac_plan(p, b, 64, 64, hp, 4, 4, 3, 132)
+        assert plan.variant == CM._variant(hp) and plan.nsplit == 1
+        assert plan.items == 64 * -(-hp // plan.tile)
+        assert plan.grid == min(plan.items, 3 * 132)
+        assert plan.streamed == plan.inputs == 2 * hp * 4 * (
+            (p - 1 + b) * 64 + p * 64)
+    shared = CM.corr_mac_plan(16, 64, 64, 1, 1024, 4, 2, 3, 132)
+    assert shared.streamed - shared.inputs == 63 * 16 * 2 * 1024 * 2
+    few = CM.corr_mac_plan(16, 64, 2, 2, 256, 4, 4, 3, 132)
+    assert few.b_chunk == 16 and few.nsplit == 4  # 4 items x 4 ranges
+    assert few.streamed - few.inputs == 2 * 2 * 256 * 4 * 3 * (15 + 16)
+    for hp, size in ((6, 4), (12, 2), (2, 4)):
+        with pytest.raises(ValueError, match="16-byte"):
+            CM.corr_mac_plan(3, 4, 2, 2, hp, size, 4, 3, 132)
+    with pytest.raises(ValueError, match="fits no block"):
+        CM.corr_mac_plan(3, 4, 2, 2, 128, 4, 4, 0, 132)
 
 
 @pytest.mark.parametrize("bits", [24, 16])

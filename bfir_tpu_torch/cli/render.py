@@ -3,37 +3,45 @@
     python -m bfir_tpu_torch.cli.render in.wav out.wav \\
         [--impulse ir.wav [--impulse-level DB]] ... \\
         [--eq "b0,b1,...,b30" --eq-level DB] \\
-        [--block 1024] [--dtype float32] [--out-format pcm24 [--dither]] \\
-        [--delay 0,100 [--subdelay 0,8]] [--device cuda | --cpu]
+        [--block 1024] [--dtype float64] [--out-format pcm24 [--dither]] \\
+        [--delay 0,100 [--subdelay 0,8]] [--auto-attenuate] [--serve PORT] \\
+        [--device cuda | --cpu]
 
 Counterpart of ``bfir_tpu/cli/render.py``: the input goes through
 ``StreamProcessor.render`` (the bulk engine, core/bulk.py; the streaming
-engine's ``process_buffer`` when a delay line is configured) and the exact
-T filtered frames are written. The default device is CUDA; ``--cpu`` is
-``--device cpu``. Integer output formats are rounded and clipped; with
-``--dither`` they go through the output stage first (hp-TPDF dither and
-error feedback in float64, a fresh dither state over the whole render).
-The default ``--dtype`` is float32 (the reference's float64 needs the
-extended engine on CUDA, ROADMAP Queue 1 #4). ``--serve`` and
-``--auto-attenuate`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+engine's ``process_buffer`` when a delay line is configured or the engine
+is ``extended``) and the exact T filtered frames are written. The default
+device is CUDA; ``--cpu`` is ``--device cpu``. Integer output formats are
+rounded and clipped; with ``--dither`` they go through the output stage
+first (hp-TPDF dither and error feedback in float64, a fresh dither state
+over the whole render). The default ``--dtype`` is float64, as in the
+reference: on CUDA the ``auto`` engine mode then takes ``extended`` (native
+float64), on the CPU the ``complex`` engine. ``--auto-attenuate`` runs the
+white-noise headroom probe (``ops.noise``) on the device for each impulse
+file and prints the level it applies; ``--serve PORT`` runs the TCP control
+server during the render, its changes crossfading into the running session.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
 import torch
 
-from bfir_tpu_torch.core.spec import (ChainSpec, DelaySpec, EngineConfig,
-                                      EqSpec, FilterSpec, ImpulseFileSpec,
+from bfir_tpu_torch.cli.server import ControlServer
+from bfir_tpu_torch.cli.store import ConfigStore
+from bfir_tpu_torch.core.spec import (LEVEL_STEPS_PER_DB, ChainSpec,
+                                      DelaySpec, EngineConfig, EqSpec,
+                                      FilterSpec, ImpulseFileSpec,
                                       SampleFormat, StreamSpec)
 from bfir_tpu_torch.engine.session import StreamProcessor
 from bfir_tpu_torch.io import wavio
 from bfir_tpu_torch.ops import dither as dth
 from bfir_tpu_torch.ops import formats as fm
+from bfir_tpu_torch.ops.noise import calculate_attenuation
 
 _SUBTYPE_FOR_FORMAT = {
     "pcm16": (SampleFormat.S16_LE, "pcm16"),
@@ -42,13 +50,6 @@ _SUBTYPE_FOR_FORMAT = {
     "float32": (SampleFormat.FLOAT_LE, "float32"),
     "float64": (SampleFormat.FLOAT64_LE, "float64"),
 }
-
-# flags of the reference CLI whose machinery is not ported yet
-_NOT_PORTED = {
-    "serve": "ROADMAP Queue 1 #8 (servers)",
-    "auto_attenuate": "ROADMAP Queue 1 #8 (ops.noise, with the servers)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bfir-torch-render", description=__doc__,
@@ -62,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eq", help="31 comma-separated band gains in dB")
     p.add_argument("--eq-level", type=float, default=0.0)
     p.add_argument("--block", type=int, default=1024)
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float64")
     p.add_argument("--out-format", choices=sorted(_SUBTYPE_FOR_FORMAT),
                    default="float32")
     p.add_argument("--resample", action="store_true",
@@ -74,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "sharded"],
                    default="auto",
                    help="streaming engine the session builds beside the "
-                        "bulk render engine (modes not ported raise)")
+                        "bulk render engine (default auto: extended for "
+                        "float64 on CUDA; modes not ported raise)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
@@ -82,9 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hp-TPDF dither + error feedback for integer output "
                         "formats")
     p.add_argument("--auto-attenuate", action="store_true",
-                   help="not ported yet")
+                   help="apply the white-noise headroom probe to each impulse")
     p.add_argument("--serve", type=int, metavar="PORT", default=None,
-                   help="not ported yet")
+                   help="run the TCP control server on PORT during rendering "
+                        "(same protocol as the reference plugin)")
     p.add_argument("--delay", metavar="SAMPLES[,SAMPLES...]",
                    help="per-channel output delay in samples (one value "
                         "broadcasts to all channels; delay.cpp:495-600)")
@@ -96,12 +99,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> EngineConfig:
-    for flag, item in _NOT_PORTED.items():
-        value = getattr(args, flag)
-        if value is not None and value is not False:  # --serve 0 is given
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to bfir_tpu_torch "
-                f"yet: {item}")
     files = []
     for i, path in enumerate(args.impulse[:3]):
         level_db = args.impulse_level[i] if i < len(args.impulse_level) else 0.0
@@ -153,13 +150,45 @@ def dither_output(y: np.ndarray, fmt: SampleFormat, device) -> np.ndarray:
     return q.cpu().numpy().astype(np.float64) / fmt.full_scale
 
 
+def auto_attenuate(cfg: EngineConfig, device) -> EngineConfig:
+    """Each enabled impulse file's level lowered by the noise probe's
+    attenuation (run on ``device``), as the reference CLI does; prints the
+    level applied."""
+    files = []
+    for f in cfg.chain.files:
+        if f.enabled and f.filename:
+            imp, _ = wavio.read(f.filename)
+            att = calculate_attenuation(imp.T,
+                                        block_length=cfg.filter.block_length,
+                                        dtype=cfg.filter.dtype, device=device)
+            steps = int(att * LEVEL_STEPS_PER_DB)
+            print(f"auto-attenuate: {f.filename}: {att!r} dB, level "
+                  f"{steps} steps")
+            f = dataclasses.replace(f, level_steps=f.level_steps + steps)
+        files.append(f)
+    return dataclasses.replace(
+        cfg, chain=dataclasses.replace(cfg.chain, files=tuple(files)))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    device = "cpu" if args.cpu else args.device
     cfg = config_from_args(args)
     audio, rate = wavio.read(args.input)
-    sp = StreamProcessor(cfg, device="cpu" if args.cpu else args.device)
+    if args.auto_attenuate:
+        cfg = auto_attenuate(cfg, device)
+    sp = StreamProcessor(cfg, device=device)
+    server = None
+    if args.serve is not None:
+        store = ConfigStore(cfg, on_change=sp.reconfigure, device=device)
+        server = ControlServer(store, port=args.serve)
+        server.start()
     x = audio.T  # [C, T]
-    y = sp.render(x, sample_rate=rate)
+    try:
+        y = sp.render(x, sample_rate=rate)
+    finally:
+        if server is not None:
+            server.stop()
     if not sp._active:
         print("no chain configured; passing through", file=sys.stderr)
     out_fmt, subtype = _SUBTYPE_FOR_FORMAT[args.out_format]

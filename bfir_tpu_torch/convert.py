@@ -18,6 +18,13 @@ the port's generator from ``seed`` and ``*_to_numpy`` returns
 own). The dither noise after a move is therefore new noise, with the error
 feedback carried over.
 
+``DfState`` (the ``extended`` engine) is float64 here and a df64 pair of
+float32 planes (hi, lo) in the reference: ``df_state_from_numpy`` sums each
+pair in float64, and ``df_state_to_numpy`` splits back as the reference
+splits a float64 input (hi = f32(x), lo = f32(x - hi)) into a
+``DfStatePlanes`` with the reference's fields; ``df_coeffs_*`` do the same
+for the coefficient pair.
+
 ``NuSplitState`` (the split-tail schedule) converts field for field too,
 and a state made by ``bfir_tpu`` on the CPU resumes exactly at any phase.
 One made on a TPU resumes exactly at every phase but 1: after phase 0 its
@@ -28,10 +35,13 @@ the finished halfcomplex transform and its phase 1 passes it through.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
 from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuSplitState, NuState
+from bfir_tpu_torch.kernels.extended import DfState
 from bfir_tpu_torch.kernels.spectrum_mac import (DoubledState, HcState,
                                                  IntPlanes, PackedState,
                                                  SplitState)
@@ -200,3 +210,48 @@ def overflow_stats_from_numpy(of, device) -> OverflowStats:
 
 def overflow_stats_to_numpy(of: OverflowStats) -> OverflowStats:
     return OverflowStats(*(tensor_to_numpy(v) for v in of))
+
+
+class DfStatePlanes(NamedTuple):
+    """The reference's ``DfState`` fields, as numpy: each float64 array as
+    a (hi, lo) float32 pair."""
+
+    ring_hi: np.ndarray
+    ring_lo: np.ndarray
+    prev_hi: np.ndarray
+    prev_lo: np.ndarray
+    blockcounter: np.ndarray
+
+
+def _join_df(hi, lo, device) -> torch.Tensor:
+    """hi + lo, summed in float64, on ``device``."""
+    return tensor_from_numpy(np.asarray(hi, dtype=np.float64)
+                             + np.asarray(lo, dtype=np.float64), device)
+
+
+def _split_df(t: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    x = tensor_to_numpy(t).astype(np.float64)
+    hi = x.astype(np.float32)
+    return hi, (x - hi.astype(np.float64)).astype(np.float32)
+
+
+def df_state_from_numpy(st, device) -> DfState:
+    return DfState(ring=_join_df(st.ring_hi, st.ring_lo, device),
+                   prev=_join_df(st.prev_hi, st.prev_lo, device),
+                   blockcounter=int(np.asarray(st.blockcounter)))
+
+
+def df_state_to_numpy(st: DfState) -> DfStatePlanes:
+    ring_hi, ring_lo = _split_df(st.ring)
+    prev_hi, prev_lo = _split_df(st.prev)
+    return DfStatePlanes(ring_hi, ring_lo, prev_hi, prev_lo,
+                         np.asarray(st.blockcounter, dtype=np.int32))
+
+
+def df_coeffs_from_numpy(pair, device) -> torch.Tensor:
+    """The reference's ``df_coeffs`` pair (hi, lo) as one float64 plane."""
+    return _join_df(pair[0], pair[1], device)
+
+
+def df_coeffs_to_numpy(coeff: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    return _split_df(coeff)

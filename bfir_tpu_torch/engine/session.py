@@ -2,13 +2,14 @@
 
 Counterpart of ``bfir_tpu/engine/session.py`` (the plugin's DSP object,
 foo_dsp_bfir.cpp:76-410) for the ``complex``, ``hc``, ``packed``,
-``nonuniform`` and ``nonuniform_split`` engines: lazy (re)initialization on
-a format change, chain build, re-blocking into N-frame blocks, the NaN/Inf
-abort to passthrough, overflow accounting, glitch-free ``reconfigure``
-crossfades, per-channel output delay lines (``EngineConfig.delay``, values
-changed live), ``process_buffer`` for bulk input, ``render``, the offline
-bulk engine (``core.bulk``), and ``process_raw``, raw PCM bytes in and out
-through the output stage (hp-TPDF dither and error feedback, kernel K9).
+``nonuniform``, ``nonuniform_split`` and ``extended`` (float64) engines:
+lazy (re)initialization on a format change, chain build, re-blocking into
+N-frame blocks, the NaN/Inf abort to passthrough, overflow accounting,
+glitch-free ``reconfigure`` crossfades, per-channel output delay lines
+(``EngineConfig.delay``, values changed live), ``process_buffer`` for bulk
+input, ``render``, the offline bulk engine (``core.bulk``), and
+``process_raw``, raw PCM bytes in and out through the output stage (hp-TPDF
+dither and error feedback, kernel K9).
 
 The device is explicit: ``StreamProcessor(config, *, device="cuda")`` runs
 the CUDA kernels and raises if CUDA is missing; ``device="cpu"`` runs their
@@ -21,10 +22,14 @@ plain versions. Where this session diverges from the reference:
 - the short-filter rule (two-stage -> ``hc`` when the head alone covers
   the filter) is decided from the geometry before building;
 - ``engine_mode="auto"`` picks ``nonuniform`` for 32 partitions or more on
-  CUDA, including the reference's three-stage range (not ported yet);
-- the engine modes not ported (``nonuniform3``, ``extended``,
-  ``sharded``) raise ``NotImplementedError`` naming their ROADMAP item, as
-  does ``packed`` at float64 on CUDA (its kernel stores float32);
+  CUDA, including the reference's three-stage range (not ported yet), and
+  ``extended`` for float64 on CUDA, where it is native float64
+  (``kernels.extended``) instead of the reference's df64;
+- the engine modes not ported (``nonuniform3``, ``sharded``) raise
+  ``NotImplementedError`` naming their ROADMAP item; ``packed`` at float64
+  on CUDA raises too (its kernel stores float32) and names ``extended``;
+- ``extended`` outputs float64 on every host (the reference: only on x64
+  hosts);
 - ``nonuniform_split`` on a filter the head alone covers raises
   ``ValueError`` (the reference tries the next engine);
 - the block counter is a host int, so no block waits on the device to
@@ -52,16 +57,17 @@ from bfir_tpu_torch.core.spec import EngineConfig, FilterSpec, StreamSpec
 from bfir_tpu_torch.engine import selfcheck
 from bfir_tpu_torch.engine.cache import ArtifactCache
 from bfir_tpu_torch.engine.chain import build_chain
+from bfir_tpu_torch.kernels import extended as E
 from bfir_tpu_torch.kernels import spectrum_mac as K
 from bfir_tpu_torch.ops import delay as DL
 from bfir_tpu_torch.ops import dither as dth
 from bfir_tpu_torch.ops import formats as fm
+from bfir_tpu_torch.utils.device import resolve_device
 from bfir_tpu_torch.utils.logging import pinfo
 from bfir_tpu_torch.utils.profiling import BlockTimer
 
 _NOT_PORTED = {
     "nonuniform3": "ROADMAP Queue 1 #2 (three-stage engine)",
-    "extended": "ROADMAP Queue 1 #4 (extended precision as float64)",
     "sharded": "ROADMAP Queue 1 #9 (multi-GPU)",
 }
 
@@ -69,20 +75,6 @@ _NOT_PORTED = {
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to bfir_tpu_torch yet: "
                                f"{_NOT_PORTED[what]}")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; CUDA must be present when asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                               "available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cpu or cuda, got {device!r}")
-    return dev
 
 
 def _check_config(config: EngineConfig) -> None:
@@ -383,6 +375,10 @@ class StreamProcessor:
         if self._impl == "packed":
             return K.pack_coeffs(built.impulse, fspec, self._channels,
                                  scale=built.scale, device=self.device)
+        if self._impl == "extended":
+            return E.df_coeffs(built.impulse, fspec, self._channels,
+                               scale=built.scale, shared=shared,
+                               device=self.device)
         return cv.coeffs_to_spectra(built.impulse, fspec, scale=built.scale,
                                     device=self.device)
 
@@ -423,11 +419,15 @@ class StreamProcessor:
             if dev.type == "cuda" and fspec.dtype == "float64":
                 raise NotImplementedError(
                     "the packed engine's kernel K8 stores float32; float64 "
-                    "on CUDA is ROADMAP Queue 1 #4 (extended precision as "
-                    "float64)")
+                    'on CUDA runs on engine_mode="extended" (or "auto")')
             self._step = K.step_packed
             self._init_state = lambda: K.init_packed_state(fspec, n_channels,
                                                            device=dev)
+        elif impl == "extended":
+            pinfo("Engine precision: extended (native float64).")
+            self._step = E.step_df
+            self._init_state = lambda: E.init_df_state(fspec, n_channels,
+                                                       device=dev)
         else:
             self._step = cv.step
             self._init_state = lambda: cv.init_state(fspec, n_channels,
@@ -549,8 +549,9 @@ class StreamProcessor:
             return out
         self._pending_swap = None
         xfade = {"hc": K.step_hc_crossfade,
-                 "packed": K.step_packed_crossfade}.get(self._impl,
-                                                        cv.step_crossfade)
+                 "packed": K.step_packed_crossfade,
+                 "extended": E.step_df_crossfade}.get(self._impl,
+                                                      cv.step_crossfade)
         self._state, out = xfade(self._state, self._coeffs, swap, block)
         self._coeffs = swap
         return out
@@ -687,8 +688,9 @@ class StreamProcessor:
         at the bulk geometry instead of the one-block latency schedule. The
         output is the same linear convolution the streaming engines produce
         (to float rounding); the streaming state is neither read nor
-        advanced. A queued crossfade or a delay line takes
-        ``process_buffer`` instead (it advances the stream, as the
+        advanced. A queued crossfade, a delay line or the ``extended``
+        engine (the bulk engine would round an honoured float64 request)
+        takes ``process_buffer`` instead (it advances the stream, as the
         reference's fallback does), flushed so that T frames come back."""
         with self._lock:
             frames = np.atleast_2d(np.asarray(frames))
@@ -698,7 +700,8 @@ class StreamProcessor:
             if not self._active or self._failed:
                 return frames
             if (self._pending_swap is not None or self._nu_old is not None
-                    or self._delay_fn is not None):
+                    or self._delay_fn is not None
+                    or self._impl == "extended"):
                 out = self._process_buffer_locked(frames, sample_rate)
                 t = frames.shape[1]
                 if out.shape[1] < t:

@@ -72,7 +72,7 @@ def _check_dtype(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cpu" and t.dtype == torch.float64:
         raise NotImplementedError(
             f"{name} is float64: the kernel computes in float32; float64 on "
-            "CUDA is ROADMAP Queue 1 #4 (extended precision as float64)")
+            'CUDA runs on engine_mode="extended" (or "auto")')
 
 
 def _check_cuda(h: int, device: torch.device, *tensors) -> None:

@@ -418,7 +418,7 @@ def _f32_cuda(x: torch.Tensor, name: str, device) -> None:
     if x.dtype == torch.float64:
         raise NotImplementedError(
             f"{name} is float64: the kernel computes in float32; float64 on "
-            "CUDA is ROADMAP Queue 1 #4 (extended precision as float64)")
+            'CUDA runs on engine_mode="extended" (or "auto")')
 
 
 def _same_shape(shape, expect, what: str) -> None:

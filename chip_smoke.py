@@ -39,7 +39,8 @@ Phases (any failure exits non-zero before the last line is printed):
 8. two further renders: ``BulkRenderer(..., nu_engine="split")`` at the
    flagship, and a 16384-tap filter through the batch engine;
 9. the render CLI as a user runs it: ``python -m bfir_tpu_torch.cli.render``
-   in a subprocess on a 2-channel WAV and a 131072-tap impulse WAV; SNR;
+   in a subprocess on a 2-channel WAV and a 131072-tap impulse WAV at
+   ``--dtype float32``; SNR;
 10. session E: raw S24 bytes through ``StreamProcessor.process_raw`` with
     the packed engine (K8), per-channel delays 7 c and hp-TPDF dither (K9):
     (a) float output against scipy shifted by the delays, (b) the dithered
@@ -61,7 +62,28 @@ Phases (any failure exits non-zero before the last line is printed):
     through ``rfft_split_hc_balanced`` + K4; the same measurements as
     session F, against (a);
 13. the render CLI again with ``--delay 0,100``, float32 and then
-    ``--out-format pcm24 --dither``: gate (b) on the dithered WAV.
+    ``--out-format pcm24 --dither``: gate (b) on the dithered WAV;
+14. session H: the ``extended`` engine (native float64) at the flagship,
+    ``filter.dtype="float64"``, ``engine_mode="auto"``: (a) 288 blocks
+    streamed: wall and device ms/block, kernels and copies per block, busy
+    share, peak device memory, worst-channel SNR >= 240 dB against scipy;
+    (b) a live crossfade ``reconfigure``: the ramp block is the linear
+    blend of the two filters' outputs, then the new filter alone; (c) S24
+    in, dithered S24 out through ``process_raw`` at float64 (K9), gate (b)
+    of session E; (d) ``render`` through ``process_buffer``, T frames, no
+    K7 launch, >= 240 dB;
+15. session I: the servers at the flagship (float32, auto: the
+    nonuniform engine): one ``ConfigStore``, a ``ControlServer`` and an
+    ``AudioServer`` on the card, two clients streaming 5 s of 64-channel
+    FLOAT_LE at once in frames of 4096 frames; between two frames a control
+    client sets a second impulse (``F1FN``, the attenuation probe on the
+    card) and ``EQM0 50``; each client's output before the change and, past
+    the settle span, after it against scipy; round trip per frame (p50,
+    p99), frames/s and the probe's seconds;
+16. the render CLI at its default ``--dtype`` (float64: ``extended``)
+    with ``--out-format float64``, >= 240 dB, and with ``--auto-attenuate``
+    on a +12 dB impulse: output peak <= 1 and the level applied equal to
+    the port's probe run on the card.
 
 Phase 3 also checks K4 at h = 1024, 8192 and 16384 on 64 and 129 rows of
 planes with h and h + 128 lanes (timed at [64, 8192], logged at [64,
@@ -79,7 +101,7 @@ h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
 planes (h + 128 lanes) on 64 rows, K17 also timed at [64, 1024] (h =
 512).
 
-The launch counters are zeroed just before each path (sessions A-G, the
+The launch counters are zeroed just before each path (sessions A-I, the
 two renders) and read just after it; each path must have launched its
 kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
@@ -105,6 +127,9 @@ C = 64            # channels
 N = 1024          # block length
 TAPS = 131072     # impulse length: P = 128 partitions
 MIN_SNR_DB = 110.0
+# the extended (float64) engine's gate: a float64 overlap-save reads about
+# 306 dB against scipy at small sizes; float32 engines read about 130
+MIN_SNR64_DB = 240.0
 REL_TOL = 1e-5    # kernel vs plain: float32 sums in another order
 LSB24 = 2.0 ** -23  # one step of 24-bit output at +-1 full scale
 DEVICE = "cuda"
@@ -203,11 +228,13 @@ def _traced(run):
     thousands of launches (K9's plain version) every later trace loses
     its first device event, and now and then the device clock reads
     milliseconds early, so that the events it places before the trace
-    opened are dropped. So the trace opens with a spin of about 25 ms and
-    eight marker spin kernels, run() starts after them, and one more
-    marker closes it. The markers are left out of the events; the trace
-    is whole when it holds events, a marker ends before the first and one
-    starts after the last."""
+    opened are dropped; a trace of that size, even alone in its process,
+    now and then loses its last events. So the trace opens with a spin of
+    about 25 ms and eight marker spin kernels, run() starts after them,
+    and one more marker and a second 25 ms spin close it. The markers are
+    left out of the events; the trace is whole when it holds events, a
+    marker ends before the first and one starts after the last (a trace
+    that is not is logged with the side it lacks)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,18 +248,24 @@ def _traced(run):
         y = run()
         torch.cuda.synchronize()
         torch.cuda._sleep(1)
+        torch.cuda._sleep(LEAD_CYCLES)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spins = [e.time_range for e in events if "spin_kernel" in e.name]
     work = [e for e in events if "spin_kernel" not in e.name]
-    whole = bool(work) and (
-        any(t.end <= min(e.time_range.start for e in work) for t in spins)
-        and any(t.start >= max(e.time_range.end for e in work)
-                for t in spins))
-    return y, work, whole
+    opened = bool(work) and any(
+        t.end <= min(e.time_range.start for e in work) for t in spins)
+    closed = bool(work) and any(
+        t.start >= max(e.time_range.end for e in work) for t in spins)
+    if work and not (opened and closed):
+        log(f"trace of {len(work)} device events lacks its "
+            + " and ".join(w for w, ok in (("opening", opened),
+                                           ("closing", closed)) if not ok)
+            + " marker")
+    return y, work, opened and closed
 
 
-def _device_ms(fn, reps=20):
+def _device_ms(fn, reps=20, tries=TRIES):
     """Device time (ms) per call of fn: the summed durations of the GPU
     work it launches, from torch.profiler, over ``reps`` calls. A host
     clock or events around one launch would also count the Python
@@ -240,12 +273,12 @@ def _device_ms(fn, reps=20):
     fn launches the same work on every call: the count of one call comes
     from a whole trace of one call, and a trace of ``reps`` calls counts
     only if it is whole and holds exactly ``reps`` times that many events.
-    Each is taken again until it does, ``TRIES`` times at most; then the
+    Each is taken again until it does, ``tries`` times at most; then the
     run stops."""
     fn()
 
     def whole_trace(calls, per_call=None):
-        for _ in range(TRIES):
+        for _ in range(tries):
             _, events, whole = _traced(lambda: [fn() for _ in range(calls)])
             if whole and (per_call is None
                           or len(events) == calls * per_call):
@@ -255,7 +288,7 @@ def _device_ms(fn, reps=20):
                                     f" ({per_call} a call)")
                 + ("" if whole else ", not whole") + "; tracing again")
         raise SystemExit(f"chip_smoke: no whole trace of {calls} calls in "
-                         f"{TRIES} tries")
+                         f"{tries} tries")
 
     events = whole_trace(reps, len(whole_trace(1)))
     return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
@@ -767,18 +800,7 @@ def check_quantizer():
     for bits in (24, 16):
         imin, imax = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
         for dt, rows, t, plain_dev in cases:
-            npdt = np.float32 if dt == torch.float32 else np.float64
-            byte = rng.integers(-128, 128, (rows, t + 1))
-            args = [
-                rng.uniform(-1.1, 1.1, (rows, t)) * (imax + 1),  # x clips
-                0.5 + (np.diff(byte, axis=1) + 1.0) / 255.0,  # dither values
-                rng.uniform(-1.5, 1.5, rows), rng.uniform(-1.5, 1.5, rows)]
-            args = [torch.from_numpy(a.astype(npdt)) for a in args]
-            stats = [torch.zeros(rows, dtype=torch.int32),
-                     torch.zeros(rows, dtype=dt),
-                     torch.zeros(rows, dtype=torch.int32)]
-            x, dv, e0, e1 = (a.to(DEVICE) for a in args)
-            nof, lg, ilg = (a.to(DEVICE) for a in stats)
+            x, dv, e0, e1, nof, lg, ilg = _k9_inputs(rng, dt, rows, t, imax)
 
             def kernel():
                 return DK.quantize_hp_tpdf(x, dv, e0, e1, imin, imax, nof,
@@ -823,15 +845,56 @@ def check_quantizer():
                     f"{n} x {op} {lat[name][op]:.2f}"
                     for op, n in K9_CHAIN[name].items()) + ")")
             if row is None:
-                # the plain version is timed by main() after every path
+                # the plain version is timed by main() after every path,
+                # in a process of its own (time_k9_plain)
                 row = {"err": 0.0, "ms": ms, "library_ms": None,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "plain": (variant, functools.partial(
-                           DK.quantize_hp_tpdf_plain, x, dv, e0, e1, imin,
-                           imax, nof, lg, ilg))}
+                       "plain": variant}
     log_ptxas("quantize_kernel")
     dump_sass("quantize_kernel")
     return row
+
+
+def _k9_inputs(rng, dt, rows, t, imax):
+    """K9's arguments on the card, drawn from ``rng``: x [rows, t] that
+    clips at +-(imax + 1), dither values, e0, e1 and zeroed statistics."""
+    import torch
+
+    npdt = np.float32 if dt == torch.float32 else np.float64
+    byte = rng.integers(-128, 128, (rows, t + 1))
+    args = [
+        rng.uniform(-1.1, 1.1, (rows, t)) * (imax + 1),  # x clips
+        0.5 + (np.diff(byte, axis=1) + 1.0) / 255.0,  # dither values
+        rng.uniform(-1.5, 1.5, rows), rng.uniform(-1.5, 1.5, rows)]
+    args = [torch.from_numpy(a.astype(npdt)) for a in args]
+    stats = [torch.zeros(rows, dtype=torch.int32), torch.zeros(rows, dtype=dt),
+             torch.zeros(rows, dtype=torch.int32)]
+    return [a.to(DEVICE) for a in args + stats]
+
+
+def time_k9_plain():
+    """Run in a process of its own by main(): K9's plain version on the
+    inputs of its row (check_quantizer's first case, the same seed), one
+    call timed by the profiler and by CUDA events; prints them as the last
+    line, a JSON object. Its 25602 launches make a trace that loses events
+    after other traces in a long process (in this script's full run, the
+    start of each of five traces at its end), so it runs where no other
+    trace came before, after one small trace that starts the profiler,
+    with up to 20 tries (each must still be whole, with the exact event
+    count: 2 of 3 traces in one run lost their last events)."""
+    import torch
+
+    from bfir_tpu_torch.kernels import dither_kernel as DK
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    imin, imax = -(1 << 23), (1 << 23) - 1
+    args = _k9_inputs(np.random.default_rng(17), torch.float32, C, 1024, imax)
+    plain = functools.partial(DK.quantize_hp_tpdf_plain, *args[:4], imin,
+                              imax, *args[4:])
+    _traced(lambda: torch.cuda._sleep(1))
+    print(json.dumps({"plain_ms": _device_ms(plain, 1, tries=20),
+                      "event_ms": _event_ms(plain, 1)}), flush=True)
 
 
 def chain_latency():
@@ -940,13 +1003,13 @@ def _write_wav(name, h):
     return path
 
 
-def _config(path, tail_store="auto", mode="auto"):
+def _config(path, tail_store="auto", mode="auto", dtype="float32"):
     from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig,
                                           FilterSpec, ImpulseFileSpec)
 
     files = (ImpulseFileSpec(enabled=True, filename=path), ImpulseFileSpec(),
              ImpulseFileSpec())
-    return EngineConfig(filter=FilterSpec(N, dtype="float32"),
+    return EngineConfig(filter=FilterSpec(N, dtype=dtype),
                         chain=ChainSpec(files=files), nu_tail_store=tail_store,
                         engine_mode=mode)
 
@@ -980,10 +1043,11 @@ def _stream(sp, x, chunks):
     return np.concatenate(outs, axis=1)
 
 
-def _timed_blocks(sp, x, what):
+def _timed_blocks(sp, x, what, counts=None):
     """Wall ms per block of process() over the 64-block chunks x[:3]
-    (median), then one profiled call over x[3] for the device-busy share.
-    Returns (ms per block, outputs)."""
+    (median), then one profiled call over x[3] for the device-busy share
+    (its numbers into ``counts``, as ``_device_busy``). Returns (ms per
+    block, outputs)."""
     times, outs = [], []
     for chunk in x[:3]:
         t0 = time.perf_counter()
@@ -992,7 +1056,7 @@ def _timed_blocks(sp, x, what):
     ms = float(np.median(times))
     log(f"{what}: process() {ms:.4f} ms/block (wall, 64-block calls, median "
         f"of 3, C={C}, N={N}, {TAPS} taps)")
-    outs.append(_device_busy(lambda: sp.process(x[3]), what))
+    outs.append(_device_busy(lambda: sp.process(x[3]), what, counts))
     return ms, outs
 
 
@@ -1082,12 +1146,12 @@ def run_path(what, names, fn, *args):
     return counts
 
 
-def _snr_gate(snr, what):
+def _snr_gate(snr, what, bound=MIN_SNR_DB):
     log(f"{what}: worst-channel SNR vs scipy float64 {snr:.1f} dB "
-        f"(bound {MIN_SNR_DB:.0f})")
-    if not snr >= MIN_SNR_DB:
+        f"(bound {bound:.0f})")
+    if not snr >= bound:
         raise SystemExit(f"chip_smoke: {what} SNR {snr:.1f} dB < "
-                         f"{MIN_SNR_DB:.0f}")
+                         f"{bound:.0f}")
 
 
 def session_a(cache):
@@ -1290,10 +1354,11 @@ def render_short():
     _snr_gate(_worst_snr_db(y, x, h), "render (batch)")
 
 
-def _run_cli(inp, ir, name, *flags):
+def _run_cli(inp, ir, name, *flags, out_lines=None):
     """``python -m bfir_tpu_torch.cli.render`` in a subprocess (its
     default device, CUDA), with HOME inside the work directory so its
-    artifact cache stays in the checkout; returns the output WAV [C, T]."""
+    artifact cache stays in the checkout; returns the output WAV [C, T]
+    (and its stdout's lines into ``out_lines``)."""
     from bfir_tpu_torch.io import wavio
 
     out = os.path.join(WORK, f"cli_{name}.wav")
@@ -1309,12 +1374,16 @@ def _run_cli(inp, ir, name, *flags):
     log(f"render CLI {' '.join(flags) or '(defaults)'}: "
         f"{res.stdout.strip()}; {wall:.1f} s for the whole process (torch "
         "import, engine builds and self-checks included)")
+    if out_lines is not None:
+        out_lines.extend(res.stdout.splitlines())
     return wavio.read(out)[0].T
 
 
 def render_cli():
-    """Phase 9: the render CLI on a 2-channel WAV; then phase 11, the same
-    input with ``--delay 0,100``, float32 and then dithered 24-bit."""
+    """Phase 9: the render CLI on a 2-channel WAV at float32; then phase
+    13, the same input with ``--delay 0,100``, float32 and then dithered
+    24-bit; then its float64 default (``extended`` on CUDA) and
+    ``--auto-attenuate`` on a hot impulse."""
     from bfir_tpu_torch.io import wavio
 
     rng = np.random.default_rng(13)
@@ -1325,17 +1394,62 @@ def render_cli():
     ir, inp = (os.path.join(WORK, f"cli_{n}.wav") for n in ("ir", "in"))
     wavio.write(ir, h.T, 44100, subtype="float32")
     wavio.write(inp, x, 44100, subtype="float32")
-    y = _run_cli(inp, ir, "out")
+    y = _run_cli(inp, ir, "out", "--dtype", "float32")
     _snr_gate(_worst_snr_db(y, x.T, h), "render CLI")
 
     delays = (0, 100)
     ref = _shifted_ref(x.T, h, delays, x.shape[0])
-    yf = _run_cli(inp, ir, "delay", "--delay", "0,100")
+    yf = _run_cli(inp, ir, "delay", "--dtype", "float32", "--delay", "0,100")
     a_max = float(np.abs(yf - ref).max())
     _snr_gate(_shifted_snr_db(yf, ref), "render CLI --delay 0,100")
-    yd = _run_cli(inp, ir, "dither", "--delay", "0,100", "--out-format",
-                  "pcm24", "--dither")
+    yd = _run_cli(inp, ir, "dither", "--dtype", "float32", "--delay", "0,100",
+                  "--out-format", "pcm24", "--dither")
     _dither_gate(yd, ref, a_max, "render CLI --delay 0,100 pcm24 --dither")
+    render_cli_float64(x, h, inp, ir)
+
+
+def render_cli_float64(x, h, inp, ir):
+    """The render CLI at its default dtype, float64 (``extended`` on CUDA),
+    held to the float64 gate; then ``--auto-attenuate`` on a hot impulse
+    (+12 dB): the output peak stays within full scale, and the level the
+    CLI applies is the port's probe run on the card here."""
+    from bfir_tpu_torch.io import wavio
+    from bfir_tpu_torch.ops.noise import calculate_attenuation
+
+    y = _run_cli(inp, ir, "f64", "--out-format", "float64")
+    _snr_gate(_worst_snr_db(y, x.T, h), "render CLI float64 (default dtype)",
+              MIN_SNR64_DB)
+    rng = np.random.default_rng(28)
+    hot = (rng.standard_normal((2, TAPS)) * np.exp(-np.arange(TAPS) / 1000.0)
+           * 1e-4)
+    hot[:, 0] = 4.0
+    xu = rng.uniform(-0.5, 0.5, (x.shape[0], 2)).astype(np.float32)
+    ir_hot, inp_u = (os.path.join(WORK, f"cli_{n}.wav") for n in ("hot",
+                                                                  "inu"))
+    wavio.write(ir_hot, hot.T, 44100, subtype="float64")
+    wavio.write(inp_u, xu, 44100, subtype="float32")
+    lines = []
+    ya = _run_cli(inp_u, ir_hot, "att", "--block", str(N), "--out-format",
+                  "float64", "--auto-attenuate", out_lines=lines)
+    said = [ln for ln in lines if ln.startswith("auto-attenuate:")]
+    steps = int(said[0].split(" dB, level ")[1].split()[0])
+    t0 = time.perf_counter()
+    att = calculate_attenuation(hot, block_length=N, dtype="float64",
+                                device=DEVICE)
+    log(f"render CLI --auto-attenuate: {said[0]}; the probe here on the card "
+        f"{att!r} dB in {time.perf_counter() - t0:.3f} s")
+    if steps != int(att * 10):
+        raise SystemExit(f"chip_smoke: --auto-attenuate applied {steps} "
+                         f"steps, the probe on the card gives {att} dB")
+    ref = _shifted_ref(xu.T, hot * 10 ** (steps / 200), [0, 0], xu.shape[0])
+    peak = float(np.abs(ya).max())
+    log(f"render CLI --auto-attenuate: output peak {peak:.4f} (bound 1.0; "
+        f"{float(np.abs(ref).max()) * 10 ** (-steps / 200):.4f} without "
+        "the attenuation)")
+    if not peak <= 1.0:
+        raise SystemExit(f"chip_smoke: --auto-attenuate output peak {peak}")
+    _snr_gate(_shifted_snr_db(ya, ref), "render CLI --auto-attenuate",
+              MIN_SNR64_DB)
 
 
 def _shifted_ref(x, h, delays, length):
@@ -1377,7 +1491,9 @@ def _dither_gate(y, ref, a_max, what):
                          f"LSB, RMS {rms:.4f} LSB")
 
 
-def _raw_config(path, out_fmt, delays, dither):
+def _raw_config(path, out_fmt, delays, dither, dtype="float32",
+                mode="packed"):
+    """S24 in, ``out_fmt`` out; ``delays`` None: no delay line."""
     from bfir_tpu_torch.core.spec import (ChainSpec, DelaySpec, EngineConfig,
                                           FilterSpec, ImpulseFileSpec,
                                           SampleFormat, StreamSpec)
@@ -1385,14 +1501,15 @@ def _raw_config(path, out_fmt, delays, dither):
     files = (ImpulseFileSpec(enabled=True, filename=path), ImpulseFileSpec(),
              ImpulseFileSpec())
     return EngineConfig(
-        filter=FilterSpec(N, dtype="float32"),
+        filter=FilterSpec(N, dtype=dtype),
         stream=StreamSpec(n_channels=C, sample_rate=44100,
                           in_format=SampleFormat.S24_LE,
                           out_format=SampleFormat[out_fmt],
                           apply_dither=dither),
         chain=ChainSpec(files=files),
-        delay=DelaySpec(enabled=True, samples=tuple(delays)),
-        engine_mode="packed")
+        delay=(DelaySpec() if delays is None
+               else DelaySpec(enabled=True, samples=tuple(delays))),
+        engine_mode=mode)
 
 
 def _raw_chunks(sp, raw, frames):
@@ -1716,6 +1833,307 @@ def session_g():
     _drive_steps("session G", engines, x, ref)
 
 
+def _window_ref(x, h, t0, length):
+    """scipy's float64 convolution of the stream x [C, T] with the rows of
+    h, samples [t0, t0 + length), from the input window that reaches them."""
+    from scipy import signal
+
+    a = max(0, t0 - h.shape[1])
+    seg = x[:, a:t0 + length].astype(np.float64)
+    return np.stack([signal.fftconvolve(seg[c], h[c].astype(np.float64))[
+        t0 - a:t0 - a + length] for c in range(x.shape[0])])
+
+
+def session_h(cache):
+    """The extended engine (native float64) at the flagship: 64 ch x
+    131072 taps, filter.dtype float64, engine_mode auto. (a) streaming;
+    (b) a live crossfade reconfigure; (c) S24 in, dithered S24 out through
+    process_raw (K9 at float64); (d) render() through process_buffer."""
+    import torch
+
+    from bfir_tpu_torch.core.spec import SampleFormat
+    from bfir_tpu_torch.engine.session import StreamProcessor
+    from bfir_tpu_torch.kernels import corr_mac as CM
+    from bfir_tpu_torch.ops import formats as fm
+
+    h = _impulse(22, C)
+    path = _write_wav("h.wav", h)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sp = StreamProcessor(_config(path, dtype="float64"), cache,
+                         device=DEVICE)
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((C, 32 * N + 123))
+    t0 = time.perf_counter()
+    y = _stream(sp, x, [1000, 37, 20000])
+    log(f"session H: first process() calls incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s, {y.shape[1] // N} blocks")
+    if sp._impl != "extended" or sp._coeffs.dtype != torch.float64:
+        raise SystemExit(f"chip_smoke: session H engine {sp._impl!r}")
+    if y.dtype != np.float64:
+        raise SystemExit(f"chip_smoke: session H output {y.dtype}")
+    more = rng.standard_normal((4, C, 64 * N))
+    counts = {}
+    ms, ys = _timed_blocks(sp, more, "session H (a) extended", counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    xs = np.concatenate([x, *more], axis=1)
+    ys = np.concatenate([y, *ys], axis=1)
+    if counts["busy_ms"] is None:
+        device = "device not measured"
+    else:
+        dev_ms = counts["busy_ms"] / 64
+        device = (f"device {dev_ms:.4f} ms/block, "
+                  f"{counts['kernels'] / 64:.2f} kernels and "
+                  f"{counts['copies'] / 64:.2f} copies per block, busy "
+                  f"{100 * counts['busy_ms'] / counts['wall_ms']:.1f}%")
+    log(f"session H (a): {ys.shape[1] // N} blocks, wall {ms:.4f} ms/block, "
+        f"{device}; peak device memory {peak / 2 ** 20:.1f} MiB above the "
+        f"{base / 2 ** 20:.1f} MiB before the session (C={C}, N={N}, "
+        f"{TAPS} taps, float64)")
+    _snr_gate(_worst_snr_db(ys, xs, h), "session H (a) extended",
+              MIN_SNR64_DB)
+
+    # (b) a live crossfade to a second filter: the ramp block blends the
+    # two filters' outputs linearly, then the new filter alone
+    h2 = _impulse(24, C)
+    ring = sp._state.ring
+    sp.reconfigure(_config(_write_wav("h2.wav", h2), dtype="float64"))
+    if sp._pending_swap is None:
+        raise SystemExit("chip_smoke: session H reconfigure queued no "
+                         "crossfade")
+    x2 = rng.standard_normal((C, 8 * N))
+    y2 = sp.process(x2)
+    if sp._pending_swap is not None or sp._state.ring is not ring:
+        raise SystemExit("chip_smoke: session H crossfade rebuilt or did not "
+                         "run")
+    full = np.concatenate([xs, x2], axis=1)
+    t_sw = ys.shape[1]  # the stream's output so far (123 frames pend)
+    old = _window_ref(full, h, t_sw, N)
+    new = _window_ref(full, h2, t_sw, y2.shape[1])
+    ramp = np.arange(N) / (N - 1)
+    blend = old * (1 - ramp) + new[:, :N] * ramp
+    diff = new[:, :N] - old
+    big = np.abs(diff) > 0.1 * np.abs(diff).std()
+    w = (y2[:, :N] - old)[big] / diff[big]
+    w_err = float(np.abs(w - np.broadcast_to(ramp, diff.shape)[big]).max())
+    log(f"session H (b): crossfade block: mixing weight against the linear "
+        f"ramp max |err| {w_err:.2e} over {int(big.sum())} samples (bound "
+        "1e-9)")
+    if not w_err <= 1e-9:
+        raise SystemExit("chip_smoke: session H crossfade is not the ramp")
+    _snr_gate(_shifted_snr_db(y2[:, :N], blend),
+              "session H (b) crossfade block vs the blend", MIN_SNR64_DB)
+    _snr_gate(_shifted_snr_db(y2[:, N:], new[:, N:]),
+              "session H (b) after the crossfade, new filter", MIN_SNR64_DB)
+
+    # (c) raw S24 in, dithered S24 out at float64 (K9 at float64); the
+    # same input through FLOAT64_LE out gives the engine's own error
+    s24, f64 = SampleFormat.S24_LE, SampleFormat.FLOAT64_LE
+    total = 40 * N + 77
+    xi = np.clip(np.round(0.1 * rng.standard_normal((C, total)) * 2 ** 23),
+                 -2 ** 23, 2 ** 23 - 1).astype(np.int32)
+    raw = fm.encode_int(xi, s24)
+    xr = xi / 2.0 ** 23
+    chunks = [3000, 17 * N + 5, total - 3000 - 17 * N - 5]
+    sp_f = StreamProcessor(_raw_config(path, "FLOAT64_LE", None, False,
+                                       "float64", "auto"), cache,
+                           device=DEVICE)
+    yf = fm.decode(b"".join(_raw_chunks(sp_f, raw, chunks)), f64, C)
+    ref = _shifted_ref(xr, h, [0] * C, yf.shape[1])
+    a_max = float(np.abs(yf - ref).max())
+    log(f"session H (c): FLOAT64_LE out, engine {sp_f._impl}, "
+        f"{yf.shape[1] // N} blocks, max |err| {a_max:.3e}")
+    _snr_gate(_shifted_snr_db(yf, ref), "session H (c) float64 raw",
+              MIN_SNR64_DB)
+    del sp_f
+    sp_d = StreamProcessor(_raw_config(path, "S24_LE", None, True,
+                                       "float64", "auto"), cache,
+                           device=DEVICE)
+    yd = fm.decode(b"".join(_raw_chunks(sp_d, raw, chunks)), s24, C)
+    if (sp_d._impl != "extended"
+            or sp_d._dither_state.e0.dtype != torch.float64):
+        raise SystemExit(f"chip_smoke: session H (c) engine {sp_d._impl!r}")
+    _dither_gate(yd, ref, a_max, "session H (c) dithered S24, float64")
+    del sp_d
+
+    # (d) render(): process_buffer, flushed to T frames, no bulk engine
+    sp.reset()
+    k7 = CM.corr_mac.launches
+    xd = rng.standard_normal((C, 24 * N + 500))
+    t0 = time.perf_counter()
+    yr = sp.render(xd)
+    wall = time.perf_counter() - t0
+    if (yr.shape != xd.shape or sp._bulk is not None
+            or CM.corr_mac.launches != k7):
+        raise SystemExit(f"chip_smoke: session H render gave {yr.shape}, "
+                         f"bulk {sp._bulk}, K7 launches "
+                         f"{CM.corr_mac.launches - k7}")
+    log(f"session H (d): render() {xd.shape[1]} frames through "
+        f"process_buffer in {wall:.3f} s wall, no K7 launch")
+    _snr_gate(_worst_snr_db(yr, xd, h2), "session H (d) render",
+              MIN_SNR64_DB)
+    return ms
+
+
+CLIENT_SECONDS = 5.0   # audio a session I client streams, at 44.1 kHz
+CLIENT_FRAMES = 4096   # frames per wire frame
+
+
+def _audio_client(port, x, gate, rts, errors):
+    """Stream x [C, T] as FLOAT_LE wire frames of CLIENT_FRAMES frames, one
+    reply awaited each; after frame ``gate[0]`` wait twice on the barrier
+    ``gate[1]`` (the control change happens between). Fills ``rts`` with
+    (frame, round-trip ms, frames back) and returns the output
+    [C, <= T]."""
+    import socket
+    import struct
+
+    from bfir_tpu_torch.core.spec import SampleFormat
+    from bfir_tpu_torch.ops import formats as fm
+
+    f32 = SampleFormat.FLOAT_LE
+    outs = []
+    try:
+        sk = socket.create_connection(("127.0.0.1", port), timeout=300)
+        sk.sendall((json.dumps({"channels": x.shape[0], "sample_rate": 44100,
+                                "in_format": "float_le",
+                                "out_format": "float_le"}) + "\n").encode())
+        f = sk.makefile("rb")
+        hdr = json.loads(f.readline().decode())
+        if not hdr.get("ok"):
+            raise RuntimeError(f"header refused: {hdr}")
+        frame_bytes = 4 * x.shape[0]
+        for k, a in enumerate(range(0, x.shape[1], CLIENT_FRAMES)):
+            raw = fm.encode_float(x[:, a:a + CLIENT_FRAMES], f32)
+            t0 = time.perf_counter()
+            sk.sendall(struct.pack("<I", len(raw)) + raw)
+            (n,) = struct.unpack("<I", f.read(4))
+            outs.append(f.read(n))
+            rts.append((k, (time.perf_counter() - t0) * 1e3,
+                        n // frame_bytes))
+            if k == gate[0]:
+                gate[1].wait()
+                gate[1].wait()
+        sk.sendall(struct.pack("<I", 0))
+        (n,) = struct.unpack("<I", f.read(4))
+        f.read(n)
+        sk.close()
+    except Exception as e:  # reported by the caller
+        errors.append(repr(e))
+        gate[1].abort()
+    return fm.decode(b"".join(outs), f32, x.shape[0]) if outs else None
+
+
+def session_i(cache):
+    """The servers at the flagship: one ConfigStore, a ControlServer and an
+    AudioServer on the card (64 ch x 131072 taps, float32, auto, so the
+    nonuniform engine); two clients stream at once, and between two of
+    their frames a control client sets a second impulse (F1FN, the
+    attenuation probe on the card) and an EQ band."""
+    import socket
+    import threading
+
+    from bfir_tpu_torch.cli.audio_server import AudioServer
+    from bfir_tpu_torch.cli.server import ControlServer
+    from bfir_tpu_torch.cli.store import ConfigStore
+    from bfir_tpu_torch.core.spec import level_steps_to_linear
+    from bfir_tpu_torch.ops.noise import calculate_attenuation
+
+    h = _impulse(25, C)
+    h2 = _impulse(26, C)
+    path, path2 = _write_wav("i.wav", h), _write_wav("i2.wav", h2)
+    cfg = _config(path)
+    store = ConfigStore(cfg, device=DEVICE)
+    audio = AudioServer(cfg, host="127.0.0.1", port=0, store=store,
+                        cache=cache, device=DEVICE)
+    ctl = ControlServer(store, host="127.0.0.1", port=0, default_dir=WORK)
+    rng = np.random.default_rng(27)
+    n_in = int(CLIENT_SECONDS * 44100)
+    xs = [(0.1 * rng.standard_normal((C, n_in))).astype(np.float32)
+          for _ in range(2)]
+    n_frames = -(-n_in // CLIENT_FRAMES)
+    switch = n_frames // 2 - 1  # the change comes after this frame
+    barrier = threading.Barrier(3, timeout=600)
+    rts = [[], []]
+    errors, ys = [], [None, None]
+    audio.start()
+    ctl.start()
+    try:
+        def client(i):
+            ys[i] = _audio_client(audio.port, xs[i], (switch, barrier),
+                                  rts[i], errors)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        sessions = list(audio._sessions)
+        with socket.create_connection(("127.0.0.1", ctl.port),
+                                      timeout=300) as sk:
+            replies, secs = [], []
+            for cmd in (f"F1FN {path2}", "EQM0 50", "EQM0"):
+                t0 = time.perf_counter()
+                sk.sendall(cmd.encode() + b"\r")
+                buf = b""
+                while not buf.endswith(b"\r"):
+                    chunk = sk.recv(4096)
+                    if not chunk:
+                        break
+                    buf += chunk
+                secs.append(time.perf_counter() - t0)
+                replies.append(buf[:-1].decode())
+        barrier.wait()
+        for t in threads:
+            t.join(600)
+    finally:
+        audio.stop()
+        ctl.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"chip_smoke: session I client errors {errors}")
+    if replies != ["OK", "OK", "50"]:
+        raise SystemExit(f"chip_smoke: session I control replies {replies}")
+    if (len(sessions) != 2 or any(s._impl != "nonuniform" for s in sessions)
+            or store.device.type != DEVICE):
+        raise SystemExit("chip_smoke: session I sessions "
+                         f"{[s._impl for s in sessions]}")
+    steps = store.get_file_level(1)
+    t0 = time.perf_counter()
+    att = calculate_attenuation(h2, block_length=N, dtype="float32",
+                                device=DEVICE)
+    probe_s = time.perf_counter() - t0
+    log(f"session I: F1FN round trip {secs[0]:.3f} s (the probe on the card "
+        f"and both sessions' reconfigure), EQM0 50 {secs[1]:.3f} s; the "
+        f"probe alone {probe_s:.3f} s on the card, {att:.4f} dB; level set "
+        f"{steps} steps")
+    if steps != int(att * 10):
+        raise SystemExit(f"chip_smoke: session I level {steps} != probe "
+                         f"{att:.4f} dB")
+    nu = sessions[0]._nuspec
+    settle = (nu.ratio * (nu.delay_blocks + 2) + nu.p_head) * N
+    t_sw = (switch + 1) * CLIENT_FRAMES
+    g2 = level_steps_to_linear(steps)
+    for i in range(2):
+        y, x = ys[i], xs[i]
+        times = [ms for k, ms, _ in rts[i][1:]]
+        rate = sum(n for _, _, n in rts[i][1:]) / (sum(times) / 1e3)
+        log(f"session I client {i}: {y.shape[1]} frames x {C} ch back of "
+            f"{n_in} sent in {n_frames} wire frames of {CLIENT_FRAMES}; "
+            f"round trip per frame p50 {np.percentile(times, 50):.3f} ms, "
+            f"p99 {np.percentile(times, 99):.3f} ms over frames 1-"
+            f"{n_frames - 1} (frame 0, with the session's build and "
+            f"self-check, {rts[i][0][1] / 1e3:.2f} s); {rate:.0f} frames/s "
+            f"over those frames ({rate / 44100:.1f} x real time)")
+        _snr_gate(_worst_snr_db(y[:, :t_sw], x, h),
+                  f"session I client {i} before the change")
+        after = _window_ref(x, h2 * g2, t_sw + settle,
+                            y.shape[1] - t_sw - settle)
+        _snr_gate(_shifted_snr_db(y[:, t_sw + settle:], after),
+                  f"session I client {i} after the change (from frame "
+                  f"{settle} on)")
+
+
 def main():
     preflight()
     from bfir_tpu_torch.engine.cache import ArtifactCache
@@ -1745,6 +2163,9 @@ def main():
                        "irfft_hc_tail_fused", "irfft_hc_tail_pallas",
                        "rfft_hc_pallas", "irfft_split_hc_tail_balanced"),
          session_g),
+        ("session H", ("quantize_hp_tpdf",), session_h, cache),
+        ("session I", ("mac_hc", "mac_hc_tiled_int",
+                       "irfft_split_hc_tail_balanced"), session_i, cache),
     ]
     total = dict.fromkeys(kernels, 0)
     for what, names, fn, *args in paths:
@@ -1757,13 +2178,23 @@ def main():
     render_cli()
     # K9's plain version launches 25602 kernels a call: a trace of that
     # many makes later traces lose events (_traced), so it is timed after
-    # every other trace, over one call (three lost events in half the tries)
+    # every other trace, over one call, in a process of its own
     k9 = kernels["quantize_hp_tpdf"]
-    variant, plain = k9.pop("plain")
-    k9["plain_ms"] = _device_ms(plain, 1)
+    variant = k9.pop("plain")
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.time_k9_plain()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    out = res.stdout.strip().splitlines()
+    for line in out[:-1]:
+        log(f"time_k9_plain: {line}")
+    if res.returncode or not out:
+        raise SystemExit(f"chip_smoke: timing K9's plain version failed "
+                         f"(exit {res.returncode}):\n{res.stderr[-3000:]}")
+    got = json.loads(out[-1])
+    k9["plain_ms"] = got["plain_ms"]
     log(f"kernel quantize_hp_tpdf [{variant}]: plain {k9['plain_ms']:.4f} "
-        f"ms (profiler, 1 call), CUDA-event {_event_ms(plain, 1):.4f} ms; "
-        f"the kernel {k9['ms']:.4f} ms")
+        f"ms (profiler, 1 call, a process of its own), CUDA-event "
+        f"{got['event_ms']:.4f} ms; the kernel {k9['ms']:.4f} ms")
 
     rows = []
     for name, k in kernels.items():

@@ -247,7 +247,7 @@ def test_session_render_matches_reference(tmp_path, monkeypatch, taps):
     assert yq.shape == (2, 3000) and tsp._bulk is None
 
 
-def test_render_cli_matches_reference(tmp_path, monkeypatch):
+def test_render_cli_matches_reference(tmp_path, monkeypatch, capsys):
     rng = np.random.default_rng(50)
     h = _impulse(51, 2, 3000)
     x = (0.3 * rng.standard_normal((12000, 2))).astype(np.float32)
@@ -266,6 +266,14 @@ def test_render_cli_matches_reference(tmp_path, monkeypatch):
     _close(yt, yj)
     ref = _oracle(x.T, h * 10 ** (-3 / 20)).T
     assert _snr_db(yt, ref) > 110
-    for flag in (["--serve", "0"], ["--auto-attenuate"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            CLI.main([common[0], out_t, *common[1:], "--cpu", *flag])
+    # --serve runs the control server during the render: the same output
+    assert CLI.main([common[0], out_t, *common[1:], "--cpu", "--serve",
+                     "0"]) == 0
+    _close(wavio.read(out_t)[0], yj)
+    # --auto-attenuate lowers the level by the probe's printed steps
+    capsys.readouterr()
+    assert CLI.main([common[0], out_t, *common[1:], "--cpu",
+                     "--auto-attenuate"]) == 0
+    steps = int(capsys.readouterr().out.split(" dB, level ")[1].split()[0])
+    assert steps < 0
+    _close(wavio.read(out_t)[0], yj * 10 ** (steps / 200))

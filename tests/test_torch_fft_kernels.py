@@ -262,7 +262,7 @@ OFF_CPU = {  # wrapper called on [4, n] (or planes [4, n/2]) of a dtype
 def test_refusals_off_the_cpu(name):
     """A tensor off the CPU never takes the plain version: float32 goes to
     the kernel (here on the meta device it raises for want of CUDA),
-    float64 raises NotImplementedError naming ROADMAP Queue 1 #4, other
+    float64 raises NotImplementedError naming engine_mode="extended", other
     dtypes TypeError, and h above 16384 ValueError."""
     call = OFF_CPU[name]
 
@@ -271,7 +271,7 @@ def test_refusals_off_the_cpu(name):
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(2048, meta(torch.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+    with pytest.raises(NotImplementedError, match='engine_mode="extended"'):
         call(2048, meta(torch.float64))
     with pytest.raises(TypeError, match="float32"):
         call(2048, meta(torch.float16))

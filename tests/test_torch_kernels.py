@@ -353,8 +353,8 @@ def test_mac_tail_hc_matches_pallas(pos, lanes):
 
 def test_new_mac_wrappers_refuse_float64_on_cuda(monkeypatch):
     """K10-K13 compute in float32: a float64 tensor headed for a kernel
-    raises NotImplementedError naming ROADMAP Queue 1 #4 (the device check
-    is stubbed out here: this machine has no CUDA)."""
+    raises NotImplementedError naming engine_mode="extended" (the device
+    check is stubbed out here: this machine has no CUDA)."""
     from bfir_tpu_torch.kernels import cuda_lib
 
     monkeypatch.setattr(cuda_lib, "require_cuda", lambda *a: None)
@@ -369,7 +369,7 @@ def test_new_mac_wrappers_refuse_float64_on_cuda(monkeypatch):
         lambda: K.mac_tail_hc(z, z, z[0, :1].expand(128, 128), z[0], 0),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+        with pytest.raises(NotImplementedError, match='engine_mode="extended"'):
             call()
 
 

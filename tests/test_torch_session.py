@@ -143,7 +143,7 @@ def test_session_guards(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StreamProcessor(cfg, device="cuda")
-    for mode in ("extended", "nonuniform3", "sharded"):
+    for mode in ("nonuniform3", "sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StreamProcessor(dataclasses.replace(cfg, engine_mode=mode),
                             device="cpu")

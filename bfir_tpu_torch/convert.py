@@ -10,6 +10,7 @@ reference's order. ``blockcounter`` is an int32 scalar in the reference
 and a host int here. bf16 planes come back to numpy as float32 (numpy has
 no bfloat16; the widening is exact).
 
+``Nu3State`` (the three-stage engine, its ``tail`` a ``NuState``),
 ``PackedState``, ``SplitState``, ``DoubledState``, ``DelayState`` and
 ``OverflowStats`` convert field for field. ``DitherState`` carries ``e0``, ``e1`` and ``prev_byte``; the
 reference's threefry ``key`` has no counterpart, so ``*_from_numpy`` seeds
@@ -40,7 +41,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from bfir_tpu_torch.core.nonuniform import NuCoeffs, NuSplitState, NuState
+from bfir_tpu_torch.core.nonuniform import (Nu3Coeffs, Nu3State, NuCoeffs,
+                                           NuSplitState, NuState)
 from bfir_tpu_torch.kernels.extended import DfState
 from bfir_tpu_torch.kernels.spectrum_mac import (DoubledState, HcState,
                                                  IntPlanes, PackedState,
@@ -59,7 +61,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """tensor -> a numpy copy (never a view: steps update state in place)."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
@@ -109,6 +112,20 @@ def nu_state_to_numpy(st: NuState) -> NuState:
                    pending=tensor_to_numpy(st.pending))
 
 
+def nu3_state_from_numpy(st, device) -> Nu3State:
+    return Nu3State(head=hc_state_from_numpy(st.head, device),
+                    tail=nu_state_from_numpy(st.tail, device),
+                    inbuf=tensor_from_numpy(st.inbuf, device),
+                    pending=tensor_from_numpy(st.pending, device))
+
+
+def nu3_state_to_numpy(st: Nu3State) -> Nu3State:
+    return Nu3State(head=hc_state_to_numpy(st.head),
+                    tail=nu_state_to_numpy(st.tail),
+                    inbuf=tensor_to_numpy(st.inbuf),
+                    pending=tensor_to_numpy(st.pending))
+
+
 def nu_split_state_from_numpy(st, device) -> NuSplitState:
     return NuSplitState(head=hc_state_from_numpy(st.head, device),
                         tail=hc_state_from_numpy(st.tail, device),
@@ -137,6 +154,16 @@ def nu_coeffs_from_numpy(co, device) -> NuCoeffs:
 def nu_coeffs_to_numpy(co: NuCoeffs) -> NuCoeffs:
     return NuCoeffs(head=planes_to_numpy(co.head),
                     tail=planes_to_numpy(co.tail))
+
+
+def nu3_coeffs_from_numpy(co, device) -> Nu3Coeffs:
+    return Nu3Coeffs(head=planes_from_numpy(co.head, device),
+                     tail=nu_coeffs_from_numpy(co.tail, device))
+
+
+def nu3_coeffs_to_numpy(co: Nu3Coeffs) -> Nu3Coeffs:
+    return Nu3Coeffs(head=planes_to_numpy(co.head),
+                     tail=nu_coeffs_to_numpy(co.tail))
 
 
 def packed_state_from_numpy(st, device) -> PackedState:

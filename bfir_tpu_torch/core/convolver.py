@@ -63,6 +63,17 @@ def coeffs_to_spectra(impulse, spec: FilterSpec, scale: float = 1.0, *,
     return F.rfft(parts, n=spec.n_fft).to(device)
 
 
+def spectra_to_impulse(coeff_spectra: torch.Tensor,
+                       spec: FilterSpec) -> torch.Tensor:
+    """Invert per-partition coefficient spectra [P, C, F] back to the
+    time-domain impulse [C, P * N], on their device: the reference's debug
+    facility ``convolver_debug_dump_cbuf`` (fftw_convolver.cpp:604-651).
+    The inverse of ``coeffs_to_spectra`` to float rounding."""
+    parts = F.irfft(coeff_spectra, n=spec.n_fft)[..., : spec.block_length]
+    p, c, n = parts.shape
+    return parts.transpose(0, 1).reshape(c, p * n)
+
+
 def _advance(state: ConvolverState, block: torch.Tensor):
     """Frame spectrum into the ring (in place); returns (ring, prev, pos)."""
     n = block.shape[-1]

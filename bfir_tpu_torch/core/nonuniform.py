@@ -1,6 +1,6 @@
-"""Two-stage non-uniform partitioned convolution (Gardner 1995).
+"""Non-uniform partitioned convolution (Gardner 1995): two and three stages.
 
-Counterpart of ``bfir_tpu/core/nonuniform.py`` (two-stage part). A head
+Counterpart of ``bfir_tpu/core/nonuniform.py``. A head
 engine at the streaming block size N covers the first ``p_head * N`` taps
 and runs every block; a tail engine with partition size M = R*N covers the
 rest and fires once every R blocks, on the phase R-1 block. Tail output
@@ -20,6 +20,9 @@ Differences from the reference, all on the host side:
 Tail storage (``NuSpec.tail_store``): float32, bfloat16, or block-scaled
 int24 / int16 (``kernels.spectrum_mac.IntPlanes``); the MAC accumulates in
 float32 for every tier. ``head_store`` takes float32, int24 or int16.
+
+The three-stage engine (``Nu3Spec``, ``step_nu3``, below) replaces the tail
+with a whole two-stage engine at block M1 = ratio1 * N.
 """
 
 from __future__ import annotations
@@ -93,6 +96,19 @@ class NuSpec:
     @property
     def tail_spec(self) -> FilterSpec:
         return FilterSpec(self.m, self.p_tail, self.dtype)
+
+    @property
+    def traffic_bytes_per_block(self) -> int:
+        """Amortized MAC bytes per N-block and channel (ring + coefficients,
+        both stages, each at its storage tier)."""
+        head = (2 * self.p_head * 2 * self.block_length
+                * _ITEMSIZE[self.head_store])
+        tail = (2 * self.p_tail * 2 * self.m * _ITEMSIZE[self.tail_store]
+                // self.ratio)
+        return head + tail
+
+
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int16": 2, "int24": 3}
 
 
 def nu_geometry(taps: int, block_length: int = 1024, ratio: int = 8,
@@ -269,23 +285,37 @@ def _push_pending(pending, z):
     return torch.cat([pending[1:], z[None].to(pending.dtype)], dim=0)
 
 
+def _cycle(state, block, phase: int, head, y_head, fire):
+    """The body every non-uniform step shares, after its head step (``head``,
+    ``y_head``): ``block`` into ``inbuf`` at ``phase``, the output
+    ``y_head`` plus the pending slice, and on the cycle's last phase
+    ``fire(tail, inbuf) -> (tail, z)`` with z pushed to the pending queue.
+    Returns a state of ``state``'s type (``NuState`` or ``Nu3State``)."""
+    n = block.shape[-1]
+    off = phase * n
+    state.inbuf[:, off:off + n] = block
+    out = y_head + state.pending[0][:, off:off + n]
+    tail, pending = state.tail, state.pending
+    if phase == state.inbuf.shape[-1] // n - 1:
+        tail, z = fire(tail, state.inbuf)
+        pending = _push_pending(pending, z)
+    return type(state)(head, tail, state.inbuf, pending), out
+
+
+def _phase(state, block) -> int:
+    """The block's phase in the tail's cycle, from the head's counter."""
+    return state.head.blockcounter % (state.inbuf.shape[-1] // block.shape[-1])
+
+
 def step_nu(state: NuState, coeffs: NuCoeffs,
             block: torch.Tensor) -> Tuple[NuState, torch.Tensor]:
     """One N-block through the two-stage engine. Outputs match the uniform
     engine (``step_hc`` at P = p_head + ratio * p_tail) to fp rounding. The
     tail fires on the phase R-1 block (a host branch)."""
-    n = block.shape[-1]
-    ratio = state.inbuf.shape[-1] // n
-    phase = state.head.blockcounter % ratio
+    phase = _phase(state, block)
     head, y_head = _head_step(state.head, coeffs.head, block)
-    off = phase * n
-    state.inbuf[:, off:off + n] = block
-    out = y_head + state.pending[0][:, off:off + n]
-    tail, pending = state.tail, state.pending
-    if phase == ratio - 1:
-        tail, z = _tail_step(tail, coeffs.tail, state.inbuf)
-        pending = _push_pending(pending, z)
-    return NuState(head, tail, state.inbuf, pending), out
+    return _cycle(state, block, phase, head, y_head,
+                  lambda tail, mb: _tail_step(tail, coeffs.tail, mb))
 
 
 def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock):
@@ -300,6 +330,32 @@ def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock):
     return K.HcState(ring, prev, state.blockcounter + 1), za, zb
 
 
+def _ramp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a -> b with a linear ramp along the last axis."""
+    m = a.shape[-1]
+    w = torch.arange(m, dtype=a.dtype, device=a.device) / (m - 1)
+    return a * (1.0 - w) + b * w
+
+
+def _bridge(tail: K.HcState, coeff_old, coeff_new, mblock):
+    """The bridging fire of a live change: both coefficient sets on one
+    ring advance, the block ramped old -> new."""
+    tail, z_old, z_new = _tail_step2(tail, coeff_old, coeff_new, mblock)
+    return tail, _ramp(z_old, z_new)
+
+
+def _head_ramp(state: K.HcState, coeff_old, coeff_new, block):
+    """A head step on the change block: one ring advance, both MACs (K1, or
+    K3 on integer planes), each output's tail, ramped old -> new."""
+    n = block.shape[-1]
+    ring, prev, pos = _advance(state, block)
+    outs = [F.irfft_hc_tail(y[0].to(prev.dtype), y[1].to(prev.dtype),
+                            n=2 * n)
+            for y in (_hc_mac(ring, coeff_old, pos),
+                      _hc_mac(ring, coeff_new, pos))]
+    return K.HcState(ring, prev, state.blockcounter + 1), _ramp(*outs)
+
+
 def step_nu_crossfade(state: NuState, coeffs_old: NuCoeffs,
                       coeffs_new: NuCoeffs, block: torch.Tensor,
                       head_ramp: bool = True) -> Tuple[NuState, torch.Tensor]:
@@ -311,33 +367,15 @@ def step_nu_crossfade(state: NuState, coeffs_old: NuCoeffs,
     filter. The caller feeds blocks through here (``head_ramp=False`` after
     the first) until a phase R-1 block has passed, then returns to
     ``step_nu`` (fftw_convolver.cpp:275-321's law, per stage)."""
-    n = block.shape[-1]
-    ratio = state.inbuf.shape[-1] // n
-    phase = state.head.blockcounter % ratio
+    phase = _phase(state, block)
     if head_ramp:
-        ring, prev, pos = _advance(state.head, block)
-        yo = _hc_mac(ring, coeffs_old.head, pos)
-        yn = _hc_mac(ring, coeffs_new.head, pos)
-        out_o = F.irfft_hc_tail(yo[0].to(prev.dtype), yo[1].to(prev.dtype),
-                                n=2 * n)
-        out_n = F.irfft_hc_tail(yn[0].to(prev.dtype), yn[1].to(prev.dtype),
-                                n=2 * n)
-        ramp = torch.arange(n, dtype=out_o.dtype, device=out_o.device) / (n - 1)
-        y_head = out_o * (1.0 - ramp) + out_n * ramp
-        head = K.HcState(ring, prev, state.head.blockcounter + 1)
+        head, y_head = _head_ramp(state.head, coeffs_old.head,
+                                  coeffs_new.head, block)
     else:
         head, y_head = _head_step(state.head, coeffs_new.head, block)
-    off = phase * n
-    state.inbuf[:, off:off + n] = block
-    out = y_head + state.pending[0][:, off:off + n]
-    tail, pending = state.tail, state.pending
-    if phase == ratio - 1:
-        tail, z_old, z_new = _tail_step2(tail, coeffs_old.tail,
-                                         coeffs_new.tail, state.inbuf)
-        m = z_old.shape[-1]
-        ramp_m = torch.arange(m, dtype=z_old.dtype, device=z_old.device) / (m - 1)
-        pending = _push_pending(pending, z_old * (1.0 - ramp_m) + z_new * ramp_m)
-    return NuState(head, tail, state.inbuf, pending), out
+    return _cycle(state, block, phase, head, y_head,
+                  lambda tail, mb: _bridge(tail, coeffs_old.tail,
+                                           coeffs_new.tail, mb))
 
 
 def step_nu_macro(state: NuState, coeffs: NuCoeffs,
@@ -573,5 +611,216 @@ def process_blocks_nu_split(state: NuSplitState, coeffs: NuCoeffs,
     outs = []
     for i, blk in enumerate(blocks):
         state, y = _split_phase(state, coeffs, blk, i % ratio)
+        outs.append(y)
+    return state, torch.stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# Three-stage partitioning (reference core/nonuniform.py:873-1276): the
+# two-stage schedule composed recursively. The tail engine of ``step_nu`` is
+# replaced by a whole two-stage engine at block size M1 = ratio1 * N: its
+# head (p_head partitions at M1, every ratio1 blocks, the mid stage) and its
+# far stage (M2 = ratio2 * M1, every ratio1 * ratio2 blocks). The inner
+# engine produces its M1-block output with no extra latency, its own far
+# stage hiding inside its own pending queue (D2 >= 2), so the outer queue's
+# D1 >= 2 slack composes unchanged.
+#
+# Kernels: the outer head is ``step_hc`` (K1); the mid stage runs
+# ``_tail_step`` at M1 (K2, or K3 on integer planes, and K4 for M1 <= 8192);
+# the far stage runs ``_tail_step`` at M2 (K2 or K3, and ``torch.fft`` for
+# its inverse above K4's sizes, as the reference takes XLA there).
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Nu3Spec:
+    """Three-stage geometry: outer head (``p_head`` partitions at N) plus an
+    inner two-stage ``NuSpec`` at block M1 = ratio1 * N covering the rest."""
+
+    block_length: int
+    ratio1: int
+    p_head: int
+    inner: NuSpec
+
+    def __post_init__(self):
+        if self.ratio1 < 2 or (self.ratio1 & (self.ratio1 - 1)):
+            raise ValueError(
+                f"ratio1 must be a power of two >= 2, got {self.ratio1}")
+        if self.p_head % self.ratio1:
+            raise ValueError(
+                f"p_head ({self.p_head}) must be a multiple of ratio1 "
+                f"({self.ratio1})")
+        if self.delay_blocks < 2:
+            raise ValueError("outer head must cover >= 2 M1-blocks of taps")
+        if self.inner.block_length != self.ratio1 * self.block_length:
+            raise ValueError("inner block length must equal ratio1 * N")
+
+    @property
+    def m1(self) -> int:
+        """Inner (mid-stage) block size."""
+        return self.ratio1 * self.block_length
+
+    @property
+    def delay_blocks(self) -> int:
+        """D1: inner-output delay in M1-blocks (= outer head taps / M1)."""
+        return self.p_head // self.ratio1
+
+    @property
+    def max_taps(self) -> int:
+        return self.p_head * self.block_length + self.inner.max_taps
+
+    @property
+    def head_spec(self) -> FilterSpec:
+        return FilterSpec(self.block_length, self.p_head, self.inner.dtype)
+
+    @property
+    def traffic_bytes_per_block(self) -> int:
+        """Amortized MAC bytes per N-block and channel, all three stages."""
+        it = np.dtype(self.inner.dtype).itemsize
+        head = 2 * self.p_head * 2 * self.block_length * it
+        return head + self.inner.traffic_bytes_per_block // self.ratio1
+
+
+def nu3_geometry(taps: int, block_length: int = 1024, ratio1: int = 8,
+                 ratio2: int = 8, dtype: str = "float32",
+                 tail_store: str = "float32") -> Nu3Spec:
+    """The minimal-head three-stage geometry covering ``taps``."""
+    p_head = 2 * ratio1
+    m1 = ratio1 * block_length
+    rest = max(1, taps - p_head * block_length)
+    inner = nu_geometry(rest, m1, ratio2, dtype, tail_store)
+    return Nu3Spec(block_length, ratio1, p_head, inner)
+
+
+class Nu3State(NamedTuple):
+    head: K.HcState
+    tail: NuState  # the inner two-stage engine at M1
+    inbuf: torch.Tensor  # [C, M1]
+    pending: torch.Tensor  # [D1, C, M1]
+
+
+def init_nu3_state(spec: Nu3Spec, n_channels: int, *, device) -> Nu3State:
+    dt = getattr(torch, spec.inner.dtype)
+    return Nu3State(
+        head=K.init_hc_state(spec.head_spec, n_channels, device=device),
+        tail=init_nu_state(spec.inner, n_channels, device=device),
+        inbuf=torch.zeros((n_channels, spec.m1), dtype=dt, device=device),
+        pending=torch.zeros((spec.delay_blocks, n_channels, spec.m1),
+                            dtype=dt, device=device),
+    )
+
+
+class Nu3Coeffs(NamedTuple):
+    head: torch.Tensor  # [p_head, 2C | 2, Hp]
+    tail: NuCoeffs  # the inner two-stage coefficients
+
+
+def nu3_coeffs(impulse, spec: Nu3Spec, n_channels: int, scale: float = 1.0,
+               precise: bool = False, shared: bool = False, *,
+               device) -> Nu3Coeffs:
+    """Split the impulse at the outer head's end: the outer head's planes
+    (``spectrum_mac.hc_coeffs``) and the inner engine's ``nu_coeffs`` of
+    the rest."""
+    h = np.asarray(impulse)
+    if h.ndim == 1:
+        h = h[None, :]
+    if h.shape[-1] > spec.max_taps:
+        raise ValueError(
+            f"impulse ({h.shape[-1]} taps) exceeds the geometry's "
+            f"max_taps ({spec.max_taps}); enlarge the far stage "
+            "(nu3_geometry does)")
+    t1 = spec.p_head * spec.block_length
+    taps = h.shape[-1]
+    head_imp = h[:, : min(taps, t1)]
+    tail_imp = h[:, t1:] if taps > t1 else np.zeros((h.shape[0], 1), h.dtype)
+    return Nu3Coeffs(
+        head=K.hc_coeffs(head_imp, spec.head_spec, n_channels, scale, precise,
+                         shared=shared, device=device),
+        tail=nu_coeffs(tail_imp, spec.inner, n_channels, scale, precise,
+                       shared=shared, device=device),
+    )
+
+
+def _step_nu_tiled_head(state: NuState, coeffs: NuCoeffs,
+                        block) -> Tuple[NuState, torch.Tensor]:
+    """``step_nu`` with the head run through ``_tail_step`` (K2 or K3, K4):
+    the inner engine of the three-stage schedule, whose head runs at block
+    M1."""
+    phase = _phase(state, block)
+    head, y_head = _tail_step(state.head, coeffs.head, block)
+    return _cycle(state, block, phase, head, y_head,
+                  lambda tail, mb: _tail_step(tail, coeffs.tail, mb))
+
+
+def step_nu3(state: Nu3State, coeffs: Nu3Coeffs,
+             block: torch.Tensor) -> Tuple[Nu3State, torch.Tensor]:
+    """One N-block through the three-stage engine (outputs match the
+    uniform engine to float rounding). The structure of ``step_nu``: the
+    fire on phase R1-1 runs one step of the inner two-stage engine on the
+    completed M1-block, which fires its far stage every R2 such steps."""
+    phase = _phase(state, block)
+    head, y_head = K.step_hc(state.head, coeffs.head, block)
+    return _cycle(state, block, phase, head, y_head,
+                  lambda tail, mb: _step_nu_tiled_head(tail, coeffs.tail, mb))
+
+
+def step_nu_crossfade_tiled_head(state: NuState, coeffs_old: NuCoeffs,
+                                 coeffs_new: NuCoeffs, mblock: torch.Tensor,
+                                 head_ramp: bool = True
+                                 ) -> Tuple[NuState, torch.Tensor]:
+    """``step_nu_crossfade`` with the head run through ``_tail_step`` /
+    ``_bridge``: the inner engine's step during a three-stage transition.
+    ``head_ramp=True`` ramps the head over the (M1-sized) change block; the
+    first far fire after the change runs both far coefficient sets on one
+    ring advance and stores a full-M2 ramp."""
+    phase = _phase(state, mblock)
+    if head_ramp:
+        head, y_head = _bridge(state.head, coeffs_old.head, coeffs_new.head,
+                               mblock)
+    else:
+        head, y_head = _tail_step(state.head, coeffs_new.head, mblock)
+    return _cycle(state, mblock, phase, head, y_head,
+                  lambda tail, mb: _bridge(tail, coeffs_old.tail,
+                                           coeffs_new.tail, mb))
+
+
+def step_nu3_crossfade(state: Nu3State, coeffs_old: Nu3Coeffs,
+                       coeffs_new: Nu3Coeffs, block: torch.Tensor,
+                       head_ramp: bool = True, inner_mode: str = "ramp"
+                       ) -> Tuple[Nu3State, torch.Tensor]:
+    """Glitch-free live filter change on the three-stage engine: the
+    two-stage law applied per stage, each bridging at its own boundary
+    (fftw_convolver.cpp:275-321's law, composed twice).
+
+    - outer head: an intra-block ramp on the change block
+      (``head_ramp=True``), the new coefficients afterwards;
+    - inner engine: its first step after the change is its own ramp step
+      (``inner_mode="ramp"``); later steps run ``inner_mode="hold"`` (new
+      inner head, the far stage bridging at its first fire with a full-M2
+      ramp). Once the far stage has fired the transition is complete.
+
+    The caller tracks the stage from the block counter (``engine.session``):
+    the outer fire is at ``cnt % r1 == r1 - 1``, and the inner step there
+    sits at inner phase ``(cnt // r1) % r2``. Pending queues are never
+    touched: they carry the old filter's output, where each ramp starts."""
+    phase = _phase(state, block)
+    if head_ramp:
+        head, y_head = _head_ramp(state.head, coeffs_old.head,
+                                  coeffs_new.head, block)
+    else:
+        head, y_head = K.step_hc(state.head, coeffs_new.head, block)
+    return _cycle(state, block, phase, head, y_head,
+                  lambda tail, mb: step_nu_crossfade_tiled_head(
+                      tail, coeffs_old.tail, coeffs_new.tail, mb,
+                      head_ramp=inner_mode == "ramp"))
+
+
+def process_blocks_nu3(state: Nu3State, coeffs: Nu3Coeffs,
+                       blocks: torch.Tensor) -> Tuple[Nu3State, torch.Tensor]:
+    """``step_nu3`` over blocks [B, C, N] from any phase -> (state,
+    out [B, C, N])."""
+    outs = []
+    for blk in blocks:
+        state, y = step_nu3(state, coeffs, blk)
         outs.append(y)
     return state, torch.stack(outs)

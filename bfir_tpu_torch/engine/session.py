@@ -2,7 +2,8 @@
 
 Counterpart of ``bfir_tpu/engine/session.py`` (the plugin's DSP object,
 foo_dsp_bfir.cpp:76-410) for the ``complex``, ``hc``, ``packed``,
-``nonuniform``, ``nonuniform_split`` and ``extended`` (float64) engines:
+``nonuniform``, ``nonuniform_split``, ``nonuniform3`` and ``extended``
+(float64) engines:
 lazy (re)initialization on a format change, chain build, re-blocking into
 N-frame blocks, the NaN/Inf abort to passthrough, overflow accounting,
 glitch-free ``reconfigure`` crossfades, per-channel output delay lines
@@ -19,15 +20,17 @@ plain versions. Where this session diverges from the reference:
   known-answer self-check, propagates (the reference catches every
   exception and tries the next engine). A chain that fails to build (a bad
   impulse file) still passes the stream through, as the reference does;
-- the short-filter rule (two-stage -> ``hc`` when the head alone covers
-  the filter) is decided from the geometry before building;
-- ``engine_mode="auto"`` picks ``nonuniform`` for 32 partitions or more on
-  CUDA, including the reference's three-stage range (not ported yet), and
-  ``extended`` for float64 on CUDA, where it is native float64
+- the short-filter rules are decided from the geometry before building:
+  three-stage -> ``nonuniform`` when two stages cover the filter, and
+  two-stage -> ``hc`` when the head alone covers it (the reference reaches
+  the same engines by falling through);
+- ``engine_mode="auto"`` on CUDA picks ``nonuniform3`` for 640 partitions
+  or more and ``nonuniform`` for 32 or more, as the reference does on an
+  accelerator, and ``extended`` for float64, where it is native float64
   (``kernels.extended``) instead of the reference's df64;
-- the engine modes not ported (``nonuniform3``, ``sharded``) raise
-  ``NotImplementedError`` naming their ROADMAP item; ``packed`` at float64
-  on CUDA raises too (its kernel stores float32) and names ``extended``;
+- the engine mode not ported (``sharded``) raises ``NotImplementedError``
+  naming its ROADMAP item; ``packed`` and ``nonuniform3`` at float64 on
+  CUDA raise too (their kernels store float32) and name ``extended``;
 - ``extended`` outputs float64 on every host (the reference: only on x64
   hosts);
 - ``nonuniform_split`` on a filter the head alone covers raises
@@ -67,7 +70,6 @@ from bfir_tpu_torch.utils.logging import pinfo
 from bfir_tpu_torch.utils.profiling import BlockTimer
 
 _NOT_PORTED = {
-    "nonuniform3": "ROADMAP Queue 1 #2 (three-stage engine)",
     "sharded": "ROADMAP Queue 1 #9 (multi-GPU)",
 }
 
@@ -114,7 +116,8 @@ class StreamProcessor:
         self._step = None
         self._init_state = None
         self._nuspec = None
-        self._nu_old = None  # old coeffs during a two-stage crossfade
+        self._nu_old = None  # old coeffs during a two- or three-stage change
+        self._nu3_stage = None  # "outer" | "inner" during a nu3 transition
         self._bulk = None  # lazy BulkRenderer for render() (core/bulk.py)
         self._built_impulse = None  # chain impulse the current coeffs use
         self._built_scale = 1.0
@@ -169,9 +172,12 @@ class StreamProcessor:
             and config.nu_tail_store == old_cfg.nu_tail_store
             and config.nu_head_store == old_cfg.nu_head_store
             and delay_compat)
-        if not same_geom or self._impl == "nonuniform_split":
-            # the split schedule's staged state has no two-filter bridge:
-            # reconfigure = rebuild, as the reference
+        if (not same_geom or self._impl == "nonuniform_split"
+                or (self._impl == "nonuniform3" and self._nu_old is not None)):
+            # the split schedule's staged state has no two-filter bridge,
+            # and a second change landing mid-way through a three-stage
+            # transition is not composed: reconfigure = rebuild, as the
+            # reference
             self._channels = 0
             self._pending_swap = None
             return
@@ -209,13 +215,17 @@ class StreamProcessor:
         if self._channels and self._init_state is not None:
             self._init_runtime_state()
 
-    def _resolve_nu_tail_store(self) -> str:
-        """nu_tail_store="auto": int24 for the two-stage engines on CUDA,
-        float32 on the CPU (it gains nothing from compressed storage)."""
+    def _resolve_nu_tail_store(self, engine: str) -> str:
+        """nu_tail_store="auto" for ``engine`` ("nonuniform" for both
+        two-stage kinds, or "nonuniform3"): int24 for the two-stage engines
+        on CUDA; float32 for the three-stage engine and on the CPU (it gains
+        nothing from compressed storage). An explicit tier passes through."""
         v = self.config.nu_tail_store
         if v != "auto":
             return v
-        return "int24" if self.device.type == "cuda" else "float32"
+        if engine == "nonuniform" and self.device.type == "cuda":
+            return "int24"
+        return "float32"
 
     def _resolve_engine_mode(self) -> str:
         mode = self.config.engine_mode
@@ -225,6 +235,8 @@ class StreamProcessor:
             return "complex"
         if self.config.filter.dtype == "float64":
             return "extended"  # the kernels store float32 or narrower
+        if self.n_partitions >= 640:  # the reference's threshold
+            return "nonuniform3"
         if self.n_partitions >= 32:
             return "nonuniform"
         return "hc"
@@ -234,15 +246,23 @@ class StreamProcessor:
         n = fspec.block_length
         return NU.nu_geometry(
             fspec.n_partitions * n, n, ratio=8, dtype=fspec.dtype,
-            tail_store=self._resolve_nu_tail_store(),
+            tail_store=self._resolve_nu_tail_store("nonuniform"),
             head_store=(self.config.nu_head_store if impl == "nonuniform"
                         else "float32"))
+
+    def _nu3_geometry(self, fspec: FilterSpec) -> NU.Nu3Spec:
+        """Three-stage geometry (``nu_head_store`` does not apply)."""
+        n = fspec.block_length
+        return NU.nu3_geometry(
+            fspec.n_partitions * n, n, ratio1=8, ratio2=8, dtype=fspec.dtype,
+            tail_store=self._resolve_nu_tail_store("nonuniform3"))
 
     def _init_runtime_state(self) -> None:
         fspec = self._runtime_filter_spec
         dt = getattr(torch, fspec.dtype)
         self._state = self._init_state()
         self._nu_old = None
+        self._nu3_stage = None
         self._pending = np.zeros((self._channels, 0), dtype=fspec.dtype)
         self._overflow = dth.init_overflow_stats(self._channels, dtype=dt,
                                                  device=self.device)
@@ -337,15 +357,22 @@ class StreamProcessor:
             self._channels = 0
             raise _not_ported(impl)
         fspec = self._runtime_filter_spec
+        taps = fspec.n_partitions * fspec.block_length
+        if impl == "nonuniform3":
+            nu3 = self._nu3_geometry(fspec)
+            two_stage = (nu3.p_head * nu3.block_length
+                         + nu3.inner.p_head * nu3.m1)
+            if taps <= two_stage:
+                impl = "nonuniform"  # two stages cover it
         if impl in ("nonuniform", "nonuniform_split"):
             head = self._nu_geometry(fspec, impl).p_head
             if fspec.n_partitions <= head:  # the head alone covers it
                 if impl == "nonuniform_split":
                     self._channels = 0
                     raise ValueError(
-                        f"filter ({fspec.n_partitions * fspec.block_length}"
-                        " taps) too short for the split-tail engine (head "
-                        f"alone covers {head * fspec.block_length})")
+                        f"filter ({taps} taps) too short for the split-tail "
+                        f"engine (head alone covers "
+                        f"{head * fspec.block_length})")
                 impl = "hc"
         try:
             self._build_impl(impl, built, n_channels)
@@ -372,6 +399,10 @@ class StreamProcessor:
             return NU.nu_coeffs(built.impulse, self._nuspec, self._channels,
                                 scale=built.scale, precise=precise,
                                 shared=shared, device=self.device)
+        if self._impl == "nonuniform3":
+            return NU.nu3_coeffs(built.impulse, self._nuspec, self._channels,
+                                 scale=built.scale, precise=precise,
+                                 shared=shared, device=self.device)
         if self._impl == "packed":
             return K.pack_coeffs(built.impulse, fspec, self._channels,
                                  scale=built.scale, device=self.device)
@@ -387,6 +418,7 @@ class StreamProcessor:
         disabled) the known-answer self-check through that exact step."""
         self._impl = impl
         self._nu_old = None
+        self._nu3_stage = None
         self._nuspec = None
         fspec = self._runtime_filter_spec
         dev = self.device
@@ -411,6 +443,21 @@ class StreamProcessor:
                   "(head %u x %u + tail %u x %u, per-phase bands, tail "
                   "store %s).", nuspec.p_head, nuspec.block_length,
                   nuspec.p_tail, nuspec.m, nuspec.tail_store)
+        elif impl == "nonuniform3":
+            if dev.type == "cuda" and fspec.dtype == "float64":
+                raise NotImplementedError(
+                    "the three-stage engine's kernels store float32; float64 "
+                    'on CUDA runs on engine_mode="extended" (or "auto")')
+            nuspec = self._nu3_geometry(fspec)
+            self._nuspec = nuspec
+            self._step = NU.step_nu3
+            self._init_state = lambda: NU.init_nu3_state(nuspec, n_channels,
+                                                         device=dev)
+            pinfo("Engine: three-stage non-uniform partitions (head %u x %u "
+                  "+ mid %u x %u + far %u x %u, far store %s).",
+                  nuspec.p_head, nuspec.block_length, nuspec.inner.p_head,
+                  nuspec.m1, nuspec.inner.p_tail, nuspec.inner.m,
+                  nuspec.inner.tail_store)
         elif impl == "hc":
             self._step = K.step_hc
             self._init_state = lambda: K.init_hc_state(fspec, n_channels,
@@ -437,11 +484,20 @@ class StreamProcessor:
             scaled = np.asarray(built.impulse, dtype=np.float64) * built.scale
             n_blocks, extra = 3, ""
             min_snr = selfcheck.DEFAULT_MIN_SNR_DB
-            if impl in ("nonuniform", "nonuniform_split"):
-                # the tail reaches the output only after (D + 1) fires
-                n_blocks = (self._nuspec.delay_blocks + 2) * self._nuspec.ratio
-                extra = repr(self._nuspec)
-                if self._nuspec.tail_store == "bfloat16":
+            if impl in ("nonuniform", "nonuniform_split", "nonuniform3"):
+                nu = self._nuspec
+                if impl == "nonuniform3":
+                    # the far stage's first pending output has landed: the
+                    # inner warm-up in M1-blocks, times r1
+                    n_blocks = ((nu.inner.delay_blocks + 2) * nu.inner.ratio
+                                + nu.delay_blocks) * nu.ratio1
+                    store = nu.inner.tail_store
+                else:
+                    # the tail reaches the output only after (D + 1) fires
+                    n_blocks = (nu.delay_blocks + 2) * nu.ratio
+                    store = nu.tail_store
+                extra = repr(nu)
+                if store == "bfloat16":
                     min_snr = 35.0  # the bf16 tier's documented class
             selfcheck.check_stream(
                 self._step, self._init_state, self._coeffs, scaled, fspec,
@@ -460,8 +516,16 @@ class StreamProcessor:
                           dtype=self.config.filter.dtype)
 
     def _nu_phase(self) -> int:
-        """Current block phase within the tail's M-block cycle."""
+        """Current block phase within the tail's M-block cycle (two-stage
+        engines)."""
         return self._state.head.blockcounter % self._nuspec.ratio
+
+    def _nu3_fire_phases(self):
+        """(outer fires, inner fires) for the three-stage block about to be
+        stepped."""
+        cnt = self._state.head.blockcounter
+        r1, r2 = self._nuspec.ratio1, self._nuspec.inner.ratio
+        return cnt % r1 == r1 - 1, (cnt // r1) % r2 == r2 - 1
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -524,8 +588,36 @@ class StreamProcessor:
         return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
 
     def _special_step(self, swap, block: torch.Tensor) -> torch.Tensor:
-        """A crossfade block: the filter change itself, or a two-stage
-        transition block waiting for its bridging tail fire."""
+        """A crossfade block: the filter change itself, or a two- or
+        three-stage transition block waiting for its bridging fire."""
+        if self._impl == "nonuniform3":
+            # the outer head ramps now; the inner engine bridges at its next
+            # step (its own ramp), its far stage at its next fire
+            # (core.nonuniform.step_nu3_crossfade); the stage is tracked
+            # here from the block counter
+            fires, inner_fires = self._nu3_fire_phases()
+            if swap is not None:
+                self._pending_swap = None
+                self._state, out = NU.step_nu3_crossfade(
+                    self._state, self._coeffs, swap, block, head_ramp=True,
+                    inner_mode="ramp")
+                if fires and inner_fires:  # the whole transition in one block
+                    self._nu_old = None
+                else:
+                    self._nu_old = self._coeffs
+                    self._nu3_stage = "inner" if fires else "outer"
+                self._coeffs = swap
+            else:
+                mode = "ramp" if self._nu3_stage == "outer" else "hold"
+                self._state, out = NU.step_nu3_crossfade(
+                    self._state, self._nu_old, self._coeffs, block,
+                    head_ramp=False, inner_mode=mode)
+                if fires and inner_fires:  # the far stage bridged: done
+                    self._nu_old = None
+                    self._nu3_stage = None
+                elif fires:
+                    self._nu3_stage = "inner"
+            return out
         if self._impl == "nonuniform":
             # the head ramps in-block now; the tail bridges at its first
             # fire after the change (core.nonuniform.step_nu_crossfade). A
@@ -688,9 +780,11 @@ class StreamProcessor:
         at the bulk geometry instead of the one-block latency schedule. The
         output is the same linear convolution the streaming engines produce
         (to float rounding); the streaming state is neither read nor
-        advanced. A queued crossfade, a delay line or the ``extended``
-        engine (the bulk engine would round an honoured float64 request)
-        takes ``process_buffer`` instead (it advances the stream, as the
+        advanced. A queued crossfade or a two- or three-stage transition
+        under way (``_nu_old``; the three-stage ``_nu3_stage`` is set
+        exactly then), a delay line or the ``extended`` engine (the bulk
+        engine would round an honoured float64 request) takes
+        ``process_buffer`` instead (it advances the stream, as the
         reference's fallback does), flushed so that T frames come back."""
         with self._lock:
             frames = np.atleast_2d(np.asarray(frames))

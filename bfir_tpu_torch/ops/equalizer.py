@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from bfir_tpu_torch.ops import fft as F
+from bfir_tpu_torch.utils.device import resolve_device
 
 # ISO 1/3-octave centre frequencies, Hz (equalizer.hpp:17-50).
 ISO_BANDS = (
@@ -86,3 +87,15 @@ def render_fir(taps: int, band_mags_db: Sequence[float], sample_rate: int,
     if mode == "accurate":
         return impulse
     return impulse[taps // 2:]
+
+
+def render_eq_spec(eq, filter_spec, eq_filter_blocks: int, sample_rate: int,
+                   *, device) -> torch.Tensor:
+    """Render an ``EqSpec`` as the plugin does at init
+    (foo_dsp_bfir.cpp:150-176): taps = block_length * eq_filter_blocks, 31
+    ISO bands, magnitudes in 0.1 dB steps; the FIR in the filter's dtype on
+    ``device``."""
+    taps = filter_spec.block_length * eq_filter_blocks
+    fir = render_fir(taps, eq.mag_db, sample_rate,
+                     dtype=getattr(torch, filter_spec.dtype))
+    return fir.to(resolve_device(device))

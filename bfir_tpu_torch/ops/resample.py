@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from bfir_tpu_torch.ops.firwindow import design_lowpass, kaiser_beta_for_attenuation
+from bfir_tpu_torch.utils.device import resolve_device
 
 
 @functools.lru_cache(maxsize=16)
@@ -65,5 +66,14 @@ def resample(x, rate_in: int, rate_out: int, taps_per_phase: int = None,
     idx = n0[:, None] - np.arange(k)[None, :]  # [J, K]
     valid = (idx >= 0) & (idx < t)
     win = x[..., torch.as_tensor(np.clip(idx, 0, t - 1))] * torch.as_tensor(
-        valid, dtype=x.dtype)
-    return (win * bank[torch.as_tensor(phase)]).sum(dim=-1)
+        valid, dtype=x.dtype, device=x.device)
+    return (win * bank.to(x.device)[torch.as_tensor(phase)]).sum(dim=-1)
+
+
+def resample_to(x, rate_in: int, rate_out: int, *, device,
+                **kw) -> torch.Tensor:
+    """buffer::resample_snd_file semantics (buffer.cpp:224-330): resample a
+    whole impulse or audio buffer [C, T] to the target rate, on
+    ``device``."""
+    return resample(torch.as_tensor(x).to(resolve_device(device)), rate_in,
+                    rate_out, **kw)

@@ -80,7 +80,22 @@ Phases (any failure exits non-zero before the last line is printed):
     card) and ``EQM0 50``; each client's output before the change and, past
     the settle span, after it against scipy; round trip per frame (p50,
     p99), frames/s and the probe's seconds;
-16. the render CLI at its default ``--dtype`` (float64: ``extended``)
+16. session J: the three-stage engine at 64 ch x 655 360 taps (640
+    partitions, where ``auto`` takes ``nonuniform3``), float32: (a) 960
+    blocks streamed (uneven chunks, 64-block calls, then two super-cycles
+    one block a call): SNR, wall and device ms/block, kernels and copies
+    per block, busy share, peak device memory, the far-fire block's wall
+    against its super-cycle's mean; (b) the same impulse and input
+    through ``engine_mode="nonuniform"`` (auto's int24 tail), the other
+    side of auto's choice; (c) ``process_buffer`` over two aligned
+    super-cycles equal to ``process``; (d) a live ``reconfigure``: the
+    staged transition in place (no rebuild), complete within a
+    super-cycle, the last 32 of 560 blocks >= 110 dB against the new
+    filter;
+17. checkpoint: a complex-engine stream with K9's dither on the card,
+    saved after 5 blocks (``engine.checkpoint``), loaded and resumed:
+    outputs and dithered samples bit-equal to the uninterrupted run;
+18. the render CLI at its default ``--dtype`` (float64: ``extended``)
     with ``--out-format float64``, >= 240 dB, and with ``--auto-attenuate``
     on a +12 dB impulse: output peak <= 1 and the level applied equal to
     the port's probe run on the card.
@@ -92,7 +107,9 @@ flagship: K10 (k = 1, 4, 32) and K11 on the packed ring and coefficients
 of K8's check, K12 and K13 on hc planes [128, 128, 1024] (K12 also with a
 zero-padded basis, at Hp = 2048 and at 65 channels, untimed, with its
 cooperative grid and split plans logged; K13's ring bit for bit), and
-the FFT family K14-K18 timed at session G's shape [64, 2048] (h = 1024)
+K2 also at session J's mid and far stages, [16, 128, 8192] and [8, 128,
+65536] (times under "also"), the FFT family K14-K18 timed at session G's
+shape [64, 2048] (h = 1024)
 beside ``torch.fft`` and at [64, 16384] (h = 8192): K15 and K18 at
 h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
 (forward, inverse, each tail-only) at h = 1024, 8192 and 16384 on 64 and
@@ -101,12 +118,12 @@ h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
 planes (h + 128 lanes) on 64 rows, K17 also timed at [64, 1024] (h =
 512).
 
-The launch counters are zeroed just before each path (sessions A-I, the
-two renders) and read just after it; each path must have launched its
-kernels. The last two lines are a JSON object describing the card
+The launch counters are zeroed just before each path (sessions A-J, the
+two renders, the checkpoint) and read just after it; each path must have
+launched its kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
 their times at the tail shape as well, under "also": K14 at [64, 8192]
-forward, the others at [64, 16384]), and the
+forward, the others at [64, 16384]; K2 at session J's two shapes), and the
 ``{"ok": true, ...}`` result.
 """
 
@@ -126,6 +143,7 @@ WORK = os.path.join(ROOT, "build", "smoke")
 C = 64            # channels
 N = 1024          # block length
 TAPS = 131072     # impulse length: P = 128 partitions
+TAPS3 = 655360    # session J: P = 640, where auto takes the three-stage engine
 MIN_SNR_DB = 110.0
 # the extended (float64) engine's gate: a float64 overlap-save reads about
 # 306 dB against scipy at small sizes; float32 engines read about 130
@@ -332,8 +350,10 @@ def _log_times(name, variant, kernel, plain, library, cost):
     what bounds it)."""
     ms = _time_pair(name, variant, kernel, plain, library)
     bound, by = _bound(*cost)
-    log(f"kernel {name} [{variant}]: {ms[0] / ms[2]:.2f} x the library "
-        f"call's device time; bound {bound:.5f} ms by {by}")
+    lib = ("" if ms[2] is None
+           else f"{ms[0] / ms[2]:.2f} x the library call's device time; ")
+    log(f"kernel {name} [{variant}]: {lib}bound {bound:.5f} ms by {by} "
+        f"({ms[0] / bound:.2f} x)")
     return ms, bound, by
 
 
@@ -439,6 +459,22 @@ def check_kernels():
                 lambda: K.mac_hc_plain(ring, coeff, 3),
                 mac_cost(ring, coeff, pt, ht, ht)
                 if cs == C and dt == torch.float32 else None)
+    # K2 at session J's mid and far stages: checked, times logged and kept
+    # for the JSON line's "also"
+    k2_also = []
+    for p3, hp3 in ((16, 8 * N), (8, 64 * N)):
+        ring, coeff = rn(p3, 2 * C, hp3), rn(p3, 2 * C, hp3)
+        args = ("mac_hc_tiled", f"float32 [{p3}, {2 * C}, {hp3}], session J",
+                lambda: K.mac_hc_tiled(ring, coeff, 3),
+                lambda: K.mac_hc_plain(ring, coeff, 3))
+        run(*args)
+        ms, bound, by = _log_times(*args, None,
+                                   mac_cost(ring, coeff, p3, hp3, hp3))
+        k2_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                        "library_ms": None, "bound_ms": bound,
+                        "bound_by": by})
+        del ring, coeff
+    out["mac_hc_tiled"]["also"] = k2_also
     for bits in (24, 16):
         for cs in (C, 1):
             ring = K.quantize_planes(rn(pt, 2 * C, ht), bits)
@@ -986,11 +1022,12 @@ def dump_sass(fragment):
     log(f"SASS of {len(funcs)} functions written to {path}")
 
 
-def _impulse(seed, rows):
-    """A decaying-noise room response, unit energy per row, float32."""
+def _impulse(seed, rows, taps=TAPS, tau=16384.0):
+    """A decaying-noise room response (amplitude time constant ``tau``
+    samples), unit energy per row, float32."""
     rng = np.random.default_rng(seed)
-    t = np.arange(TAPS)
-    h = rng.standard_normal((rows, TAPS)) * np.exp(-t / 16384.0)
+    t = np.arange(taps)
+    h = rng.standard_normal((rows, taps)) * np.exp(-t / tau)
     h /= np.sqrt((h ** 2).sum(axis=1, keepdims=True))
     return (0.5 * h).astype(np.float32)
 
@@ -1043,7 +1080,7 @@ def _stream(sp, x, chunks):
     return np.concatenate(outs, axis=1)
 
 
-def _timed_blocks(sp, x, what, counts=None):
+def _timed_blocks(sp, x, what, counts=None, taps=TAPS):
     """Wall ms per block of process() over the 64-block chunks x[:3]
     (median), then one profiled call over x[3] for the device-busy share
     (its numbers into ``counts``, as ``_device_busy``). Returns (ms per
@@ -1055,7 +1092,7 @@ def _timed_blocks(sp, x, what, counts=None):
         times.append((time.perf_counter() - t0) * 1e3 / (chunk.shape[1] // N))
     ms = float(np.median(times))
     log(f"{what}: process() {ms:.4f} ms/block (wall, 64-block calls, median "
-        f"of 3, C={C}, N={N}, {TAPS} taps)")
+        f"of 3, C={C}, N={N}, {taps} taps)")
     outs.append(_device_busy(lambda: sp.process(x[3]), what, counts))
     return ms, outs
 
@@ -2134,6 +2171,294 @@ def session_i(cache):
                   f"{settle} on)")
 
 
+def _long_stream(sp, what, x, more, singles, fires, spike):
+    """Stream x [C, T] through sp.process in uneven chunks, then the
+    64-block chunks ``more`` (``_timed_blocks``: wall ms/block and one
+    profiled call), then two super-cycles (64 blocks) of ``singles``
+    [B, C, N] one block per call from a super-cycle boundary on, the wall
+    of each call classed by ``fires(blockcounter)``. Logs each class's
+    median wall and the ``spike`` class's mean wall in each super-cycle
+    against the super-cycle's mean. Returns (ms/block, profiled-call
+    counts, input, output)."""
+    import torch
+
+    y = _stream(sp, x, [1000, 37, 20000, 4567, 100000])
+    counts = {}
+    ms, ys = _timed_blocks(sp, more, what, counts, taps=TAPS3)
+    align = (-sp._state.head.blockcounter) % 64
+    ys.append(sp.process(singles[:align].transpose(1, 0, 2).reshape(C, -1)))
+    walls = []
+    for blk in singles[align:align + 128]:
+        kind = fires(sp._state.head.blockcounter)
+        t0 = time.perf_counter()
+        ys.append(sp.process(blk))
+        walls.append((kind, (time.perf_counter() - t0) * 1e3))
+    torch.cuda.synchronize()
+    by_kind = {}
+    for kind, w in walls:
+        by_kind.setdefault(kind, []).append(w)
+    ratios = []
+    for cycle in (walls[:64], walls[64:]):
+        mean = float(np.mean([w for _, w in cycle]))
+        ratios.append(float(np.mean([w for k, w in cycle if k == spike]))
+                      / mean)
+    log(f"{what}: process() wall ms per single-block call (median over 2 "
+        "super-cycles): " + ", ".join(
+            f"{k} {np.median(v):.4f} ({len(v)} blocks)"
+            for k, v in by_kind.items())
+        + f"; {spike} blocks = {ratios[0]:.2f}, {ratios[1]:.2f} x their "
+        f"super-cycle's mean wall ({np.mean([w for _, w in walls]):.4f} ms "
+        "over both)")
+    used = 128 + align
+    xs = np.concatenate([x, *more, singles[:used].transpose(1, 0, 2).reshape(
+        C, -1)], axis=1)
+    return ms, counts, xs, np.concatenate([y, *ys], axis=1)
+
+
+def _device_line(counts, blocks=64):
+    if counts["busy_ms"] is None:
+        return "device not measured"
+    return (f"device {counts['busy_ms'] / blocks:.4f} ms/block, "
+            f"{counts['kernels'] / blocks:.2f} kernels and "
+            f"{counts['copies'] / blocks:.2f} copies per block, busy "
+            f"{100 * counts['busy_ms'] / counts['wall_ms']:.1f}%")
+
+
+_J = {}  # session J's impulse and inputs, and each engine's processor
+
+
+def _j_inputs():
+    """Session J's impulse (written as a WAV) and inputs, made once."""
+    if not _J:
+        tau = TAPS3 / 5.0  # the far stage (taps >= 147 456) holds 10% of it
+        rng = np.random.default_rng(31)
+        _J.update(
+            h=_impulse(30, C, TAPS3, tau), tau=tau, rng=rng,
+            x=rng.standard_normal((C, 576 * N + 321)).astype(np.float32),
+            more=rng.standard_normal((4, C, 64 * N)).astype(np.float32),
+            singles=rng.standard_normal((192, C, N)).astype(np.float32))
+        _J["path"] = _write_wav("j.wav", _J["h"])
+    return _J
+
+
+def _j_stream(cache, tag, mode):
+    """One engine of session J: built under ``mode``, its engine and
+    geometry asserted, then ``_long_stream``: wall and device ms/block, the
+    fire blocks' walls, peak device memory, SNR against scipy float64.
+    Returns (processor, output)."""
+    import torch
+
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    j = _j_inputs()
+    what = f"session J {tag}"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sp = StreamProcessor(_config(j["path"], mode=mode), cache, device=DEVICE)
+    t0 = time.perf_counter()
+    sp.process(j["x"][:, :N])
+    log(f"{what}: first process() call incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s")
+    nu = sp._nuspec
+    if mode == "auto":
+        geom = ((nu.p_head, nu.block_length), (nu.inner.p_head, nu.m1),
+                (nu.inner.p_tail, nu.inner.m), nu.inner.tail_store)
+        want = ((16, N), (16, 8 * N), (8, 64 * N), "float32")
+        fires = (lambda cnt: "far fire" if cnt % 64 == 63
+                 else "mid fire" if cnt % 8 == 7 else "head only")
+        spike, impl = "far fire", "nonuniform3"
+    else:
+        geom = ((nu.p_head, nu.block_length), (nu.p_tail, nu.m),
+                nu.tail_store)
+        want = ((16, N), (78, 8 * N), "int24")
+        fires = (lambda cnt: "tail fire" if cnt % 8 == 7
+                 else "head only")
+        spike, impl = "tail fire", "nonuniform"
+    if sp._impl != impl or geom != want:
+        raise SystemExit(f"chip_smoke: {what} engine {sp._impl!r} {nu}")
+    log(f"{what}: engine {sp._impl}, {nu}")
+    sp.reset()
+    ms, counts, xs, ys = _long_stream(sp, what, j["x"], j["more"],
+                                      j["singles"], fires, spike)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{what}: {ys.shape[1] // N} blocks, wall {ms:.4f} ms/block, "
+        f"{_device_line(counts)}; peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB "
+        f"before the session (C={C}, N={N}, {TAPS3} taps)")
+    _snr_gate(_worst_snr_db(ys, xs, j["h"]), what)
+    return sp, ys
+
+
+def session_j(cache):
+    """The three-stage engine at 64 ch x 655 360 taps (640 partitions, the
+    threshold where auto takes it), float32: (a) streaming: SNR, wall and
+    device ms/block, the far-fire block's wall; (c) process_buffer over two
+    super-cycles equals process; (d) a live reconfigure: the staged
+    transition in place, converged. The processor stays in ``_J`` for
+    ``session_j_rounds``."""
+    sp, y = _j_stream(cache, "(a) nonuniform3", "auto")
+    j = _J
+    x, rng = j["x"], j["rng"]
+
+    # (c) two super-cycles through process_buffer
+    sp.reset()
+    yb = sp.process_buffer(x[:, :128 * N])
+    diff = float(np.abs(yb - y[:, :128 * N]).max())
+    log(f"session J (c): process_buffer (2 super-cycles) vs process "
+        f"max abs diff {diff:.3e}")
+    if not diff <= REL_TOL * float(np.abs(y[:, :128 * N]).max()):
+        raise SystemExit("chip_smoke: session J process_buffer disagrees "
+                         "with process")
+
+    # (d) a live reconfigure: the staged transition runs in place
+    h2 = _impulse(32, C, TAPS3, j["tau"])
+    state = sp._state
+    far_ring = state.tail.tail.ring
+    sp.reconfigure(_config(_write_wav("j2.wav", h2)))
+    if sp._pending_swap is None or sp._state is not state:
+        raise SystemExit("chip_smoke: session J reconfigure queued no "
+                         "transition, or rebuilt")
+    x2 = rng.standard_normal((C, 560 * N)).astype(np.float32)
+    outs, done_at = [], None
+    t0 = time.perf_counter()
+    for k in range(0, 560, 8):
+        outs.append(sp.process(x2[:, k * N:(k + 8) * N]))
+        if done_at is None and sp._nu_old is None:
+            done_at = k + 8
+    wall = time.perf_counter() - t0
+    y2 = np.concatenate(outs, axis=1)
+    if (done_at is None or done_at > 72 or sp._nu3_stage is not None
+            or sp._state.tail.tail.ring is not far_ring):
+        raise SystemExit(f"chip_smoke: session J transition did not complete "
+                         f"in place within a super-cycle (done after "
+                         f"{done_at} blocks)")
+    log(f"session J (d): transition complete after <= {done_at} blocks (in "
+        f"8-block calls), 560 blocks in {wall:.3f} s wall, no rebuild")
+    full = np.concatenate([x[:, :128 * N], x2], axis=1)
+    t_end = 128 * N + y2.shape[1]
+    ref = _window_ref(full, h2, t_end - 32 * N, 32 * N)
+    _snr_gate(_shifted_snr_db(y2[:, -32 * N:], ref),
+              "session J (d) the last 32 blocks, new filter")
+    j["sp (a)"] = sp
+
+
+def session_j_two_stage(cache):
+    """Session J (b): the same impulse through the two-stage engine (auto's
+    int24 tail), the other side of auto's choice at 640 partitions. The
+    processor stays in ``_J`` for ``session_j_rounds``."""
+    _J["sp (b)"], _ = _j_stream(cache, "(b) nonuniform", "nonuniform")
+
+
+def session_j_rounds():
+    """Wall ms/block of session J's two engines, and of the two-stage
+    engine's bulk scans, in 8 rounds of 64 blocks that take the candidates in turn, in
+    forward and reverse order alternately (the host clock drifts within a
+    run); the rounds give a median and a range. (1) ``process()`` in
+    64-block host calls, the three-stage engine against the two-stage one;
+    (2) the two-stage ``process_buffer``'s scans on device input from an
+    M-cycle boundary: ``process_blocks_nu_fast`` against the step loop.
+    Timing only: these launches are not a path's."""
+    import torch
+
+    from bfir_tpu_torch.core import nonuniform as NU
+    from bfir_tpu_torch.engine.session import _scan
+
+    rounds, blocks = 8, 64
+    sp3, sp2 = _J.pop("sp (a)"), _J.pop("sp (b)")
+    rng = np.random.default_rng(33)
+    xh = rng.standard_normal((C, blocks * N)).astype(np.float32)
+    xd = torch.from_numpy(xh.reshape(C, blocks, N).transpose(1, 0, 2).copy()
+                          ).to(torch.device(DEVICE))
+
+    for blk in xd[:(-sp2._state.head.blockcounter) % 8]:
+        sp2._state, _ = NU.step_nu(sp2._state, sp2._coeffs, blk)
+
+    def bulk(sp, scan):
+        def run():
+            sp._state, y = scan(sp._state, sp._coeffs, xd)
+            return y
+        return run
+
+    groups = {
+        "process()": {"nonuniform3": lambda: sp3.process(xh),
+                      "nonuniform (int24 tail)": lambda: sp2.process(xh)},
+        "two-stage scan": {
+            "process_blocks_nu_fast": bulk(sp2, NU.process_blocks_nu_fast),
+            "step_nu loop": bulk(sp2, lambda st, co, xb: _scan(
+                NU.step_nu, st, co, xb))},
+    }
+    for group, fns in groups.items():
+        walls = {name: [] for name in fns}
+        for fn in fns.values():  # warm-up
+            fn()
+        order = list(fns)
+        for r in range(rounds):
+            for name in order if r % 2 == 0 else order[::-1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3 / blocks)
+        first, second = walls.values()
+        wins = sum(a < b for a, b in zip(first, second))
+        log(f"session J rounds, {group}: ms/block wall over {rounds} rounds "
+            f"of {blocks} blocks each (median, min-max; C={C}, N={N}, "
+            f"{TAPS3} taps): " + "; ".join(
+                f"{name} {np.median(w):.4f} ({min(w):.4f}-{max(w):.4f})"
+                for name, w in walls.items())
+            + f"; {order[0]} faster in {wins} of {rounds} rounds")
+    del sp3, sp2
+    torch.cuda.empty_cache()
+
+
+def checkpoint_resume():
+    """A complex-engine stream on the card with K9's dither: saved after 5
+    blocks (``engine.checkpoint``), loaded and resumed; outputs and
+    dithered samples bit-equal to the uninterrupted run, so the CUDA
+    generator's state crosses the file."""
+    import torch
+
+    from bfir_tpu_torch.core import convolver as cv
+    from bfir_tpu_torch.core.spec import FilterSpec
+    from bfir_tpu_torch.engine import checkpoint as CK
+    from bfir_tpu_torch.ops import dither as dth
+
+    spec = FilterSpec(N, TAPS // N, "float32")
+    co = cv.coeffs_to_spectra(_impulse(40, C), spec, device=DEVICE)
+    rng = np.random.default_rng(41)
+    x = (0.1 * rng.standard_normal((10, C, N))).astype(np.float32)
+
+    def run(st, dst, of, blocks):
+        ys, qs = [], []
+        for blk in blocks:
+            st, y = cv.step(st, co, torch.from_numpy(blk).to(DEVICE))
+            q, dst, of = dth.quantize_hp_tpdf(y * 2.0 ** 23, -2.0 ** 23,
+                                              2.0 ** 23 - 1, dst, of)
+            ys.append(y.cpu().numpy())
+            qs.append(q.cpu().numpy())
+        return st, dst, of, np.concatenate(ys, 1), np.concatenate(qs, 1)
+
+    st, dst, of, _, _ = run(cv.init_state(spec, C, device=DEVICE),
+                            dth.init_dither_state(C, seed=11, device=DEVICE),
+                            dth.init_overflow_stats(C, device=DEVICE), x[:5])
+    path = os.path.join(WORK, "checkpoint.npz")
+    CK.save_state(path, st, dst, of)
+    _, _, of_a, ya, qa = run(st, dst, of, x[5:])
+    st_b, dst_b, of_b = CK.load_state(path, device=DEVICE)
+    if dst_b.generator.device.type != torch.device(DEVICE).type:
+        raise SystemExit("chip_smoke: checkpoint generator not on the card")
+    _, _, of_b, yb, qb = run(st_b, dst_b, of_b, x[5:])
+    same = (np.array_equal(ya, yb) and np.array_equal(qa, qb)
+            and all(torch.equal(a, b) for a, b in zip(of_a, of_b)))
+    log(f"checkpoint: saved after 5 blocks, resumed for 5 ({C} ch, P "
+        f"{TAPS // N}, K9 dither): outputs and dithered samples "
+        f"{'bit-equal' if same else 'DIFFER'}; {os.path.getsize(path)} "
+        "bytes")
+    if not same:
+        raise SystemExit("chip_smoke: checkpoint resume differs")
+
+
 def main():
     preflight()
     from bfir_tpu_torch.engine.cache import ArtifactCache
@@ -2166,6 +2491,12 @@ def main():
         ("session H", ("quantize_hp_tpdf",), session_h, cache),
         ("session I", ("mac_hc", "mac_hc_tiled_int",
                        "irfft_split_hc_tail_balanced"), session_i, cache),
+        ("session J", ("mac_hc", "mac_hc_tiled",
+                       "irfft_split_hc_tail_balanced"), session_j, cache),
+        ("session J (b)", ("mac_hc", "mac_hc_tiled_int",
+                           "irfft_split_hc_tail_balanced"),
+         session_j_two_stage, cache),
+        ("checkpoint", ("quantize_hp_tpdf",), checkpoint_resume),
     ]
     total = dict.fromkeys(kernels, 0)
     for what, names, fn, *args in paths:
@@ -2175,6 +2506,7 @@ def main():
     for name, n in total.items():
         if n == 0:
             raise SystemExit(f"chip_smoke: {name} never ran on the main paths")
+    session_j_rounds()
     render_cli()
     # K9's plain version launches 25602 kernels a call: a trace of that
     # many makes later traces lose events (_traced), so it is timed after

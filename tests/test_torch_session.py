@@ -143,10 +143,15 @@ def test_session_guards(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StreamProcessor(cfg, device="cuda")
-    for mode in ("nonuniform3", "sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            StreamProcessor(dataclasses.replace(cfg, engine_mode=mode),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StreamProcessor(dataclasses.replace(cfg, engine_mode="sharded"),
+                        device="cpu")
+    # the three-stage engine builds (two stages cover 16 x 256 + 16 x 2048)
+    path, _ = _impulse(tmp_path, "h3.wav", 2, 70, taps=37000)
+    sp3 = StreamProcessor(_config(path, mode="nonuniform3"),
+                          ArtifactCache(str(tmp_path / "c3")), device="cpu")
+    sp3.process(np.zeros((2, N), np.float32))
+    assert sp3._impl == "nonuniform3"
     # a missing impulse file passes the stream through (reference parity)
     sp = StreamProcessor(cfg, ArtifactCache(str(tmp_path / "c")), device="cpu")
     x = np.ones((2, 3 * N), np.float32)

@@ -850,8 +850,8 @@ class StreamProcessor:
         t0 = time.perf_counter()
         x = fm.decode(raw, stream.in_format, stream.n_channels,
                       dtype=np.dtype(self.config.filter.dtype))
+        t1 = time.perf_counter()
         with self._lock:
-            t1 = time.perf_counter()
             ofmt = self.config.stream.out_format
             # integer output stays on the device into the output stage
             y = self._process_locked(x, sample_rate,

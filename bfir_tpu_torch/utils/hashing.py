@@ -36,9 +36,11 @@ def content_key(*parts) -> str:
     return m.hexdigest()[:16]
 
 
-def backend_fingerprint(device: torch.device) -> str:
+def backend_fingerprint(device) -> str:
     """Identity of the compute stack a verdict holds for: the torch
-    version, its CUDA build and the device's name."""
+    version, its CUDA build and the device's name. ``device``: a
+    ``torch.device`` or its name."""
+    device = torch.device(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     return "|".join([torch.__version__, str(torch.version.cuda), name])

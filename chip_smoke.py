@@ -48,6 +48,12 @@ Phases (any failure exits non-zero before the last line is printed):
     live reconfigure with new delays (a K8 crossfade, no rebuild), (d)
     ``FractionalDelayLine`` on the card against its CPU run; ms per block by
     phase (decode, engine, output stage, encode) and the device-busy share;
+    the codec phase: the native host codec (``formats.decode``,
+    ``encode_int``) equal byte for byte to the numpy one
+    (``decode_plain``, ``encode_int_plain``) on session E's input and
+    output bytes, and both timed per 1024-frame block in alternating
+    rounds (the ``{"card": ..., "codec": ...}`` line before the kernel
+    line); every gate decodes with the numpy codec;
 11. session F: 160 blocks of seeded noise through ``step_split`` (K11),
     ``step_chunked`` with k = 4 (K10), ``step_hc2`` (K13) and
     ``step_hc_fused`` (K12), with ``step_hc`` (K1) beside them: SNR,
@@ -124,7 +130,8 @@ launched its kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
 their times at the tail shape as well, under "also": K14 at [64, 8192]
 forward, the others at [64, 16384]; K2 at session J's two shapes), and the
-``{"ok": true, ...}`` result.
+``{"ok": true, ...}`` result. The line before them holds the card and
+session E's codec numbers.
 """
 
 import functools
@@ -1559,6 +1566,87 @@ def _raw_chunks(sp, raw, frames):
     return outs
 
 
+CODEC_ROUNDS = 8  # alternating rounds of the codec timing
+CODEC = {}  # session E's codec numbers, printed before the kernel line
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and (
+        a.tobytes() == b.tobytes())
+
+
+def codec_check(raw, xi, out, per):
+    """Session E's codec phase on its own bytes (C channels, S24_LE in and
+    out): the native codec (``formats.decode``, ``encode_int``) against its
+    plain numpy version, byte for byte, on the input bytes ``raw`` (made
+    from ``xi`` by the plain encode) and the dithered output bytes ``out``
+    of (b); then each side timed per N-frame block over every whole block
+    of ``raw``, in CODEC_ROUNDS rounds that alternate which side runs
+    first: decode to float32 as ``process_raw`` does, and encode_int of
+    int32 [C, N] blocks. ``per`` is (b)'s ``raw_seconds`` and wall in
+    ms/block.
+    Returns the numbers for the JSON line."""
+    from bfir_tpu_torch.core.spec import SampleFormat
+    from bfir_tpu_torch.ops import formats as fm
+
+    s24 = SampleFormat.S24_LE
+    for what, data in (("input", raw), ("output", out)):
+        if not _bits_equal(fm.decode(data, s24, C),
+                           fm.decode_plain(data, s24, C)):
+            raise SystemExit(f"chip_smoke: the native decode of session "
+                             f"E's {what} differs from the plain one")
+    q_out = np.round(fm.decode_plain(out, s24, C) * 2 ** 23).astype(np.int32)
+    for what, q, want in (("input", xi, raw), ("output", q_out, out)):
+        if (fm.encode_int(q, s24) != want
+                or fm.encode_int_plain(q, s24) != want):
+            raise SystemExit(f"chip_smoke: the native encode_int of session "
+                             f"E's {what} differs from the plain one")
+    fb = 3 * C * N
+    blocks = [raw[i * fb:(i + 1) * fb] for i in range(len(raw) // fb)]
+    qs = [np.ascontiguousarray(xi[:, i * N:(i + 1) * N])
+          for i in range(len(blocks))]
+    ops = {
+        "decode": (blocks, {
+            "native": lambda b: fm.decode(b, s24, C, dtype=np.float32),
+            "plain": lambda b: fm.decode_plain(b, s24, C,
+                                               dtype=np.float32)}),
+        "encode_int": (qs, {
+            "native": lambda q: fm.encode_int(q, s24),
+            "plain": lambda q: fm.encode_int_plain(q, s24)})}
+    result = {"format": "S24_LE", "channels": C, "frames_per_block": N,
+              "blocks": len(blocks), "rounds": CODEC_ROUNDS,
+              "equal": True, "session_e_b_ms_per_block": per}
+    for op, (items, fns) in ops.items():
+        times = {side: [] for side in fns}
+        for side in fns:  # warm: first calls build and page in
+            fns[side](items[0])
+        for r in range(CODEC_ROUNDS):
+            for side in (("native", "plain") if r % 2 == 0
+                         else ("plain", "native")):
+                t0 = time.perf_counter()
+                for it in items:
+                    fns[side](it)
+                times[side].append((time.perf_counter() - t0) * 1e3
+                                   / len(items))
+        won = sum(a < b for a, b in zip(times["native"], times["plain"]))
+        row = {"native_won": won}
+        for side, v in times.items():
+            row[f"{side}_ms"] = float(np.median(v))
+            row[f"{side}_range_ms"] = [float(min(v)), float(max(v))]
+        result[op] = row
+        log(f"session E codec: {op} per {N}-frame block of {C} ch S24_LE: "
+            f"native {row['native_ms']:.4f} ms (range "
+            f"{row['native_range_ms'][0]:.4f}-{row['native_range_ms'][1]:.4f})"
+            f", plain {row['plain_ms']:.4f} ms (range "
+            f"{row['plain_range_ms'][0]:.4f}-{row['plain_range_ms'][1]:.4f})"
+            f", median of {CODEC_ROUNDS} alternating rounds over "
+            f"{len(items)} blocks; native faster in {won} of "
+            f"{CODEC_ROUNDS}")
+    log("session E codec: native and plain bytes equal on the input and "
+        "the dithered output, both ways")
+    return result
+
+
 def session_e(cache):
     """Raw PCM through process_raw at the flagship: S24 in, the packed
     engine (K8), per-channel delays 7 c, S24 out with hp-TPDF dither (K9)."""
@@ -1579,7 +1667,7 @@ def session_e(cache):
     # 0.1 RMS input: the output peak stays near 0.3 of full scale
     xi = np.clip(np.round(0.1 * rng.standard_normal((C, total)) * 2 ** 23),
                  -2 ** 23, 2 ** 23 - 1).astype(np.int32)
-    raw = fm.encode_int(xi, s24)
+    raw = fm.encode_int_plain(xi, s24)
     x = xi / 2.0 ** 23
     chunks = [1000, 37, 20000, 4567, 9000, 17 * N + 5, 777]
     chunks.append(total - sum(chunks))
@@ -1587,7 +1675,8 @@ def session_e(cache):
     # (a) the same config with float output: the engine's own error
     sp_a = StreamProcessor(_raw_config(path, "FLOAT_LE", delays, False),
                            cache, device=DEVICE)
-    ya = fm.decode(b"".join(_raw_chunks(sp_a, raw, chunks)), f32, C)
+    ya = fm.decode_plain(b"".join(_raw_chunks(sp_a, raw, chunks)), f32,
+                         C)
     if sp_a._impl != "packed" or tuple(sp_a._coeffs.shape) != (
             TAPS // N, 2 * C, N + 128):
         raise SystemExit(f"chip_smoke: session E engine {sp_a._impl!r}")
@@ -1617,13 +1706,15 @@ def session_e(cache):
     last = raw[3 * C * sum(chunks[:-1]):]
     outs.append(_device_busy(lambda: sp.process_raw(last),
                              f"session E (b), {chunks[-1]} frames"))
-    yb = fm.decode(b"".join(outs), s24, C)
+    yb = fm.decode_plain(b"".join(outs), s24, C)
     if yb.shape != ya.shape:
         raise SystemExit(f"chip_smoke: session E (b) shape {yb.shape}")
     _dither_gate(yb, ref, a_max, "session E (b) dithered S24")
     n_of = int(sp.overflow_stats().n_overflows.sum())
     if n_of:
         raise SystemExit(f"chip_smoke: session E clipped {n_of} samples")
+    CODEC.update(codec_check(raw, xi, b"".join(outs),
+                             dict(per, wall=wall * 1e3 / n_blocks)))
 
     # (c) a live reconfigure to a second filter and reversed delays
     h2 = _impulse(16, C)
@@ -1635,7 +1726,7 @@ def session_e(cache):
         raise SystemExit("chip_smoke: session E reconfigure rebuilt")
     x2i = np.clip(np.round(0.1 * rng.standard_normal((C, 24 * N + 100))
                            * 2 ** 23), -2 ** 23, 2 ** 23 - 1).astype(np.int32)
-    raw2 = fm.encode_int(x2i, s24)
+    raw2 = fm.encode_int_plain(x2i, s24)
     k8 = K.mac_packed.launches
     outs2 = _raw_chunks(sp, raw2, [N])  # completes exactly one block
     if K.mac_packed.launches - k8 != 2 or len(outs2[0]) != 3 * C * N:
@@ -1645,7 +1736,7 @@ def session_e(cache):
             or sp._state.ring is not state.ring):
         raise SystemExit("chip_smoke: the new delays did not apply live")
     outs2 += _raw_chunks(sp, raw2[3 * C * N:], [5000, 24 * N + 100 - N - 5000])
-    y2 = fm.decode(b"".join(outs2), s24, C)
+    y2 = fm.decode_plain(b"".join(outs2), s24, C)
     full = np.concatenate([x, x2i / 2.0 ** 23], axis=1)
     t_sw = yb.shape[1]
     ref2 = _shifted_ref(full, h2, delays2, t_sw + y2.shape[1])[:, t_sw:]
@@ -1970,13 +2061,14 @@ def session_h(cache):
     total = 40 * N + 77
     xi = np.clip(np.round(0.1 * rng.standard_normal((C, total)) * 2 ** 23),
                  -2 ** 23, 2 ** 23 - 1).astype(np.int32)
-    raw = fm.encode_int(xi, s24)
+    raw = fm.encode_int_plain(xi, s24)
     xr = xi / 2.0 ** 23
     chunks = [3000, 17 * N + 5, total - 3000 - 17 * N - 5]
     sp_f = StreamProcessor(_raw_config(path, "FLOAT64_LE", None, False,
                                        "float64", "auto"), cache,
                            device=DEVICE)
-    yf = fm.decode(b"".join(_raw_chunks(sp_f, raw, chunks)), f64, C)
+    yf = fm.decode_plain(b"".join(_raw_chunks(sp_f, raw, chunks)), f64,
+                         C)
     ref = _shifted_ref(xr, h, [0] * C, yf.shape[1])
     a_max = float(np.abs(yf - ref).max())
     log(f"session H (c): FLOAT64_LE out, engine {sp_f._impl}, "
@@ -1987,7 +2079,8 @@ def session_h(cache):
     sp_d = StreamProcessor(_raw_config(path, "S24_LE", None, True,
                                        "float64", "auto"), cache,
                            device=DEVICE)
-    yd = fm.decode(b"".join(_raw_chunks(sp_d, raw, chunks)), s24, C)
+    yd = fm.decode_plain(b"".join(_raw_chunks(sp_d, raw, chunks)), s24,
+                         C)
     if (sp_d._impl != "extended"
             or sp_d._dither_state.e0.dtype != torch.float64):
         raise SystemExit(f"chip_smoke: session H (c) engine {sp_d._impl!r}")
@@ -2059,7 +2152,8 @@ def _audio_client(port, x, gate, rts, errors):
     except Exception as e:  # reported by the caller
         errors.append(repr(e))
         gate[1].abort()
-    return fm.decode(b"".join(outs), f32, x.shape[0]) if outs else None
+    return (fm.decode_plain(b"".join(outs), f32, x.shape[0]) if outs
+            else None)
 
 
 def session_i(cache):
@@ -2541,6 +2635,9 @@ def main():
             rows[-1]["also"] = k["also"]
     import torch
 
+    if not CODEC:
+        raise SystemExit("chip_smoke: session E's codec phase did not run")
+    print(json.dumps({"card": CARD, "codec": CODEC}), flush=True)
     print(json.dumps({"card": CARD, "kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

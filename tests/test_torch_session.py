@@ -8,6 +8,7 @@ against the float64 scipy convolution."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -163,14 +164,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Importing every bfir_tpu_torch module leaves jax and every module of
-    bfir_tpu out of the process."""
+    """Importing every bfir_tpu_torch module, and loading and calling the
+    native codec, leaves jax and every module of bfir_tpu out of the
+    process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import bfir_tpu_torch\n"
         "for m in pkgutil.walk_packages(bfir_tpu_torch.__path__, 'bfir_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import bfir_tpu_torch.engine.session, bfir_tpu_torch.convert\n"
+        "from bfir_tpu_torch import native\n"
+        "from bfir_tpu_torch.core.spec import SampleFormat\n"
+        "assert native.decode_f64(b'\\0' * 6, SampleFormat.S24_LE, 2).shape"
+        " == (2, 1)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'bfir_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
@@ -199,7 +205,31 @@ def test_port_sources_import_neither_jax_nor_bfir_tpu():
     for d, _, names in os.walk(os.path.join(ROOT, "bfir_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    assert os.path.join(ROOT, "bfir_tpu_torch", "native", "__init__.py") in files
     bad = [(os.path.relpath(f, ROOT), root) for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "bfir_tpu")]
     assert not bad, bad
+
+
+def test_native_codec_includes_only_the_standard_library():
+    """codec.cpp, which g++ builds alone, includes nothing but C++ standard
+    headers and files of its own directory: nothing of bfir_tpu/native."""
+    native_dir = os.path.join(ROOT, "bfir_tpu_torch", "native")
+    with open(os.path.join(native_dir, "codec.cpp")) as f:
+        includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]',
+                              f.read(), flags=re.M)
+    assert includes
+    for kind, name in includes:
+        if kind == "<":
+            assert name in _CXX_STANDARD_HEADERS, name
+        else:
+            assert "/" not in name and os.path.exists(
+                os.path.join(native_dir, name)), name
+
+
+_CXX_STANDARD_HEADERS = {
+    "algorithm", "array", "atomic", "cassert", "cerrno", "cfloat",
+    "climits", "cmath", "cstddef", "cstdint", "cstdio", "cstdlib",
+    "cstring", "limits", "memory", "new", "type_traits", "utility",
+    "vector"}

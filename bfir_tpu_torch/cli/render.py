@@ -76,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="streaming engine the session builds beside the "
                         "bulk render engine (default auto: extended for "
-                        "float64 on CUDA; modes not ported raise)")
+                        "float64 on CUDA; sharded over every visible "
+                        "device of --device)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")

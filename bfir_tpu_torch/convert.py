@@ -26,6 +26,15 @@ splits a float64 input (hi = f32(x), lo = f32(x - hi)) into a
 ``DfStatePlanes`` with the reference's fields; ``df_coeffs_*`` do the same
 for the coefficient pair.
 
+Sharded states and coefficients (``parallel.sharded.ShardedEngine``) move
+in the reference's global layout: ``ConvolverState`` with the rolled ring
+([P, 2, C, Hp] halfcomplex, or [P, C, F] complex), ``NuState`` and
+``Nu3State`` of rolled rings, and the chunk-reordered coefficient planes
+[P, 2, C | 1, Hp]. ``sharded_*_from_numpy(x, engine)`` splits them into
+the engine's shards and ``sharded_*_to_numpy(x, engine)`` joins them back,
+so a sharded stream started in one package resumes in the other on a mesh
+of the same shape.
+
 ``NuSplitState`` (the split-tail schedule) converts field for field too,
 and a state made by ``bfir_tpu`` on the CPU resumes exactly at any phase.
 One made on a TPU resumes exactly at every phase but 1: after phase 0 its
@@ -50,6 +59,7 @@ from bfir_tpu_torch.kernels.spectrum_mac import (DoubledState, HcState,
 from bfir_tpu_torch.ops.delay import DelayState
 from bfir_tpu_torch.ops.dither import (DitherState, OverflowStats,
                                        init_dither_state)
+from bfir_tpu_torch.parallel import mesh as M
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -282,3 +292,48 @@ def df_coeffs_from_numpy(pair, device) -> torch.Tensor:
 
 def df_coeffs_to_numpy(coeff: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
     return _split_df(coeff)
+
+
+def _global_from_numpy(template, x):
+    """Leaves of ``x`` (a reference NamedTuple, or one array) as CPU
+    tensors in ``template``'s NamedTuple types (its ``Sharding`` leaves
+    mark tensors, None the host blockcounter)."""
+    if isinstance(template, M.Sharding):
+        return tensor_from_numpy(x, "cpu")
+    if template is None:
+        return int(np.asarray(x))
+    return type(template)(*(_global_from_numpy(t, getattr(x, f))
+                            for t, f in zip(template, template._fields)))
+
+
+def _global_to_numpy(template, x):
+    if isinstance(template, M.Sharding):
+        return tensor_to_numpy(x)
+    if template is None:
+        return np.asarray(x, dtype=np.int32)
+    return type(template)(*(_global_to_numpy(t, v)
+                            for t, v in zip(template, x)))
+
+
+def sharded_state_from_numpy(st, engine):
+    """A reference sharded state (numpy leaves, global layout) -> the
+    engine's state of shards."""
+    tpl = engine._state_shardings
+    return engine.shard_state(_global_from_numpy(tpl, st))
+
+
+def sharded_state_to_numpy(st, engine):
+    """The engine's state -> the same NamedTuples of numpy arrays in the
+    reference's global layout (leaves in the reference's order)."""
+    tpl = engine._state_shardings
+    return _global_to_numpy(tpl, engine.join_state(st))
+
+
+def sharded_coeffs_from_numpy(co, engine):
+    tpl = engine._coeff_sharding
+    return engine.shard_coeffs(_global_from_numpy(tpl, co))
+
+
+def sharded_coeffs_to_numpy(co, engine):
+    tpl = engine._coeff_sharding
+    return _global_to_numpy(tpl, engine.join_coeffs(co))

@@ -103,6 +103,40 @@ def step(state: ConvolverState, coeff_spectra: torch.Tensor,
     return ConvolverState(ring, prev, state.blockcounter + 1), out
 
 
+def step_rolled(state: ConvolverState, coeff_spectra: torch.Tensor,
+                block: torch.Tensor) -> Tuple[ConvolverState, torch.Tensor]:
+    """``step`` on the *rolled* ring: ``ring[i]`` holds the spectrum of the
+    block i blocks ago (newest at 0), so the MAC is an aligned product
+    with no gather, and a ring split over partitions advances by passing
+    each piece's oldest slot to the next (``parallel.sharded``). The ring
+    is rebuilt out of place. Same outputs as ``step``."""
+    n = block.shape[-1]
+    frame = torch.cat([state.prev_block, block.to(state.prev_block.dtype)],
+                      dim=-1)
+    ring = torch.cat([F.rfft(frame)[None], state.spectra_ring[:-1]], dim=0)
+    out = F.irfft((coeff_spectra * ring).sum(dim=0))[..., n:]
+    return ConvolverState(ring, frame[:, n:], state.blockcounter + 1), out
+
+
+def _unroll_index(state: ConvolverState) -> torch.Tensor:
+    p = state.spectra_ring.shape[0]
+    idx = torch.remainder(state.blockcounter - 1 - torch.arange(p), p)
+    return idx.to(state.spectra_ring.device)
+
+
+def rolled_from_state(state: ConvolverState) -> ConvolverState:
+    """Pointer ring (``step``) -> rolled ring (``step_rolled``):
+    rolled[i] = ring[(blockcounter - 1 - i) mod P]."""
+    return state._replace(spectra_ring=state.spectra_ring.index_select(
+        0, _unroll_index(state)))
+
+
+def state_from_rolled(state: ConvolverState) -> ConvolverState:
+    """Inverse of ``rolled_from_state`` (the same permutation, an
+    involution): ring[s] = rolled[(blockcounter - 1 - s) mod P]."""
+    return rolled_from_state(state)
+
+
 def step_crossfade(state: ConvolverState, coeff_old: torch.Tensor,
                    coeff_new: torch.Tensor,
                    block: torch.Tensor) -> Tuple[ConvolverState, torch.Tensor]:

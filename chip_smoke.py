@@ -98,10 +98,30 @@ Phases (any failure exits non-zero before the last line is printed):
     staged transition in place (no rebuild), complete within a
     super-cycle, the last 32 of 560 blocks >= 110 dB against the new
     filter;
-17. checkpoint: a complex-engine stream with K9's dither on the card,
+17. session K: the sharded engine (``engine_mode="sharded"``) at the
+    flagship through ``StreamProcessor(..., mesh=...)``, the mesh's shards
+    repeated on the one card: (a) a (1, 4) mesh, auto -> the two-stage
+    local engine (head 16, tail 14 padded to 16; K1 per shard every
+    block, K2 per shard + K4 every 8th): 288 blocks in uneven chunks and
+    four 64-block calls, SNR, the max difference from single-device
+    ``nonuniform`` (float32 tail) on the same input, wall and device
+    ms/block, kernels and copies per block, busy share, peak memory, and
+    the collective counter against the comm model (one ppermute and one
+    psum per stage fire, 2·(C/c)·Hp·4 bytes each: 524 288 B a block and
+    4 194 304 B each at every 8th; a mismatch fails); (b) the same on a
+    (2, 2) mesh; (c) ``sharded_local="uniform"`` (hc local, K1) at (1,
+    4); (d), a path of its own: ``sharded_local="nonuniform3"`` at session
+    J's geometry through J's ``_long_stream`` (many far fires), the same
+    gates; (e) a live reconfigure on (a), converged past the settle span;
+    (f) ``process_buffer`` equal to ``process``; (g) ``mesh=None``, the
+    default mesh over every visible GPU; then, after every path, (a)'s
+    ``process()`` against single-device ``nonuniform`` and the sharded
+    engines' macro steps against their step loops in 8 alternating
+    rounds of 64 blocks;
+18. checkpoint: a complex-engine stream with K9's dither on the card,
     saved after 5 blocks (``engine.checkpoint``), loaded and resumed:
     outputs and dithered samples bit-equal to the uninterrupted run;
-18. the render CLI at its default ``--dtype`` (float64: ``extended``)
+19. the render CLI at its default ``--dtype`` (float64: ``extended``)
     with ``--out-format float64``, >= 240 dB, and with ``--auto-attenuate``
     on a +12 dB impulse: output peak <= 1 and the level applied equal to
     the port's probe run on the card.
@@ -114,7 +134,9 @@ of K8's check, K12 and K13 on hc planes [128, 128, 1024] (K12 also with a
 zero-padded basis, at Hp = 2048 and at 65 channels, untimed, with its
 cooperative grid and split plans logged; K13's ring bit for bit), and
 K2 also at session J's mid and far stages, [16, 128, 8192] and [8, 128,
-65536] (times under "also"), the FFT family K14-K18 timed at session G's
+65536] (times under "also"), K1 and K2 at session K's shard shapes at
+ring position 0, [4, 128, 1024], [4, 128, 8192] and [2, 128, 65536]
+(times under "also"), the FFT family K14-K18 timed at session G's
 shape [64, 2048] (h = 1024)
 beside ``torch.fft`` and at [64, 16384] (h = 8192): K15 and K18 at
 h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
@@ -124,12 +146,13 @@ h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
 planes (h + 128 lanes) on 64 rows, K17 also timed at [64, 1024] (h =
 512).
 
-The launch counters are zeroed just before each path (sessions A-J, the
+The launch counters are zeroed just before each path (sessions A-K, the
 two renders, the checkpoint) and read just after it; each path must have
 launched its kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
 their times at the tail shape as well, under "also": K14 at [64, 8192]
-forward, the others at [64, 16384]; K2 at session J's two shapes), and the
+forward, the others at [64, 16384]; K2 at session J's two shapes and
+session K's two shard shapes; K1 at session K's head shard), and the
 ``{"ok": true, ...}`` result. The line before them holds the card and
 session E's codec numbers.
 """
@@ -481,6 +504,25 @@ def check_kernels():
                         "library_ms": None, "bound_ms": bound,
                         "bound_by": by})
         del ring, coeff
+    # K1 and K2 at session K's shard shapes on a (1, 4) mesh (4 of the
+    # head's 16 partitions, 4 of the tail's 16, 2 of the far stage's 8),
+    # at ring position 0 on the rolled ring: checked, times kept for "also"
+    k1_also = []
+    for name, p_l, hp_l, also in (("mac_hc", 4, N, k1_also),
+                                  ("mac_hc_tiled", 4, 8 * N, k2_also),
+                                  ("mac_hc_tiled", 2, 64 * N, k2_also)):
+        ring, coeff = rn(p_l, 2 * C, hp_l), rn(p_l, 2 * C, hp_l)
+        kern = getattr(K, name)
+        args = (name, f"float32 [{p_l}, {2 * C}, {hp_l}] at pos 0, session "
+                "K shard", lambda: kern(ring, coeff, 0),
+                lambda: K.mac_hc_plain(ring, coeff, 0))
+        run(*args)
+        ms, bound, by = _log_times(*args, None,
+                                   mac_cost(ring, coeff, p_l, hp_l, hp_l))
+        also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                     "library_ms": None, "bound_ms": bound, "bound_by": by})
+        del ring, coeff
+    out["mac_hc"]["also"] = k1_also
     out["mac_hc_tiled"]["also"] = k2_also
     for bits in (24, 16):
         for cs in (C, 1):
@@ -2483,26 +2525,387 @@ def session_j_rounds():
                 NU.step_nu, st, co, xb))},
     }
     for group, fns in groups.items():
-        walls = {name: [] for name in fns}
-        for fn in fns.values():  # warm-up
-            fn()
-        order = list(fns)
-        for r in range(rounds):
-            for name in order if r % 2 == 0 else order[::-1]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fns[name]()
-                torch.cuda.synchronize()
-                walls[name].append((time.perf_counter() - t0) * 1e3 / blocks)
-        first, second = walls.values()
-        wins = sum(a < b for a, b in zip(first, second))
-        log(f"session J rounds, {group}: ms/block wall over {rounds} rounds "
-            f"of {blocks} blocks each (median, min-max; C={C}, N={N}, "
-            f"{TAPS3} taps): " + "; ".join(
-                f"{name} {np.median(w):.4f} ({min(w):.4f}-{max(w):.4f})"
-                for name, w in walls.items())
-            + f"; {order[0]} faster in {wins} of {rounds} rounds")
+        _alternate(f"session J rounds, {group}", fns, rounds, blocks, TAPS3)
     del sp3, sp2
+    torch.cuda.empty_cache()
+
+
+def _alternate(what, fns, rounds, blocks, taps):
+    """Wall ms/block of the two candidates ``fns`` (name -> a call over
+    ``blocks`` blocks) in ``rounds`` rounds that take them in turn, forward
+    and reverse alternately, after one warm-up call each; logs the median,
+    the range and the rounds the first one won. Returns {name: walls}."""
+    import torch
+
+    walls = {name: [] for name in fns}
+    for fn in fns.values():  # warm-up
+        fn()
+    order = list(fns)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3 / blocks)
+    first, second = walls.values()
+    wins = sum(a < b for a, b in zip(first, second))
+    log(f"{what}: ms/block wall over {rounds} rounds of {blocks} blocks "
+        f"each (median, min-max; C={C}, N={N}, {taps} taps): " + "; ".join(
+            f"{name} {np.median(w):.4f} ({min(w):.4f}-{max(w):.4f})"
+            for name, w in walls.items())
+        + f"; {order[0]} faster in {wins} of {rounds} rounds")
+    return walls
+
+
+_K = {}  # session K's processors and inputs, for session_k_rounds
+
+
+def _launch_counts():
+    return {name: k.launches for name, k in _kernels().items()}
+
+
+def _k_phase(what, names, fn, *args):
+    """fn(*args) inside a path, with the launches it adds logged; each
+    kernel in ``names`` must be among them."""
+    before = _launch_counts()
+    res = fn(*args)
+    got = {k: n - before[k] for k, n in _launch_counts().items()
+           if n != before[k]}
+    for name in names:
+        if not got.get(name):
+            raise SystemExit(f"chip_smoke: {what} did not launch {name}")
+    log(f"{what}: launches " + ", ".join(f"{k} {n}" for k, n in got.items()))
+    return res
+
+
+def _uncounted(fn, *args):
+    """fn(*args) inside a path with the launch counts it adds taken back: a
+    comparison run, not the path's."""
+    saved = _launch_counts()
+    try:
+        return fn(*args)
+    finally:
+        for name, k in _kernels().items():
+            k.launches = saved[name]
+
+
+def _k_stages(sp):
+    """(stage block counters, stage block lengths) of a sharded session:
+    each counter counts its stage's fires."""
+    st, eng = sp._state, sp._sharded
+    if eng.local_impl == "nonuniform3":
+        nu = eng.nuspec
+        return ((st.head.blockcounter, st.tail.head.blockcounter,
+                 st.tail.tail.blockcounter), (N, nu.m1, nu.inner.m))
+    if eng.local_impl == "nonuniform":
+        return ((st.head.blockcounter, st.tail.blockcounter),
+                (N, eng.nuspec.m))
+    return (st.blockcounter,), (N,)
+
+
+def _comm_gate(what, sp, fn, *args):
+    """fn(*args) (plain streaming blocks on a sharded session) with the
+    collective counter reset before it and held after it to the comm model
+    (parallel/COMM_MODEL.md): one ppermute and one psum per stage fire,
+    each of 2·(C/c)·Hp·4 bytes, the fires counted from the block range
+    (every R-th block, every r1·r2-th for the far stage). Any mismatch
+    fails the run. Returns fn's result."""
+    from bfir_tpu_torch.parallel import mesh as M
+
+    eng = sp._sharded
+    c_l = C // eng.mesh.shape["c"]
+    cnt0, widths = _k_stages(sp)
+    M.reset_comm_counts()
+    res = fn(*args)
+    got = M.comm_counts()
+    cnt1, _ = _k_stages(sp)
+    blocks = range(cnt0[0], cnt1[0])
+    period = [1, 8, 64][:len(widths)]
+    fires = [sum(1 for k in blocks if k % q == q - 1) for q in period]
+    if [b - a for a, b in zip(cnt0, cnt1)] != fires:
+        raise SystemExit(f"chip_smoke: {what} stage fires "
+                         f"{[b - a for a, b in zip(cnt0, cnt1)]} != {fires}")
+    sizes = [2 * c_l * (-(-w // 128) * 128) * 4 for w in widths]
+    want = {"calls": sum(fires),
+            "bytes": sum(f * b for f, b in zip(fires, sizes))}
+    log(f"{what}: collectives over {len(blocks)} blocks: ppermute "
+        f"{got['ppermute']['calls']} calls {got['ppermute']['bytes']} B, psum "
+        f"{got['psum']['calls']} calls {got['psum']['bytes']} B; the model "
+        f"{want['calls']} calls {want['bytes']} B each (per collective: "
+        + ", ".join(f"{b} B x {f}" for b, f in zip(sizes, fires))
+        + f"; {want['bytes'] / len(blocks):.0f} B a block)")
+    if got != {"ppermute": want, "psum": want}:
+        raise SystemExit(f"chip_smoke: {what} collectives {got} differ from "
+                         f"the comm model {want}")
+    return res
+
+
+def _k_session(cache, what, path, mesh, local="auto"):
+    """A sharded session of ``path`` at the flagship: built by its first
+    process() call (self-check included), reset. Returns (processor, device
+    memory before it)."""
+    import dataclasses
+
+    import torch
+
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(_config(path, mode="sharded"),
+                              sharded_local=local)
+    sp = StreamProcessor(cfg, cache, device=DEVICE, mesh=mesh)
+    t0 = time.perf_counter()
+    sp.process(np.zeros((C, N), np.float32))
+    eng = sp._sharded
+    log(f"{what}: first process() call incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s; mesh {eng.mesh.shape['c']} x "
+        f"{eng.mesh.shape['p']} of {[str(d) for d in eng.mesh.devices.flat]}, "
+        f"local engine {eng.local_impl}, {eng.nuspec or eng.spec}")
+    sp.reset()
+    return sp, base
+
+
+def _k_measure(what, sp, base, x, more, h, taps=TAPS):
+    """Stream x in uneven chunks, then ``_timed_blocks`` over ``more``
+    (wall and device ms/block) under the comm gate; SNR against scipy and
+    peak device memory. Returns (output of x, wall ms/block)."""
+    import torch
+
+    y = _stream(sp, x, [1000, 37, 20000, 4567])
+    counts = {}
+    ms, ys = _comm_gate(what, sp, _timed_blocks, sp, more, what, counts,
+                        taps)
+    peak = torch.cuda.max_memory_allocated() - base
+    xs = np.concatenate([x, *more], axis=1)
+    log(f"{what}: {xs.shape[1] // N} blocks, wall {ms:.4f} ms/block, "
+        f"{_device_line(counts)}; peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB "
+        f"before the session (C={C}, N={N}, {taps} taps)")
+    _snr_gate(_worst_snr_db(np.concatenate([y, *ys], axis=1), xs, h), what)
+    return y, ms
+
+
+def _k_ring_copies(sp):
+    """Bytes a block that the out-of-place ring advance copies (read and
+    written once each), all shards, amortized over the stage cadences."""
+    eng = sp._sharded
+    st = sp._state
+    rings = ([st.head.ring, st.tail.ring] if eng.local_impl == "nonuniform"
+             else [st.spectra_ring])
+    total = 0.0
+    for ring, q in zip(rings, (1, 8)):
+        total += sum(t.numel() * t.element_size() for t in ring.flat) / q
+    return total
+
+
+def session_k(cache):
+    """The sharded engine at the flagship (64 ch x 131072 taps, N = 1024,
+    float32) through ``StreamProcessor(..., engine_mode="sharded",
+    mesh=...)``, the mesh's shards repeated on the one card: (a) (1, 4),
+    auto -> the two-stage local engine (head 16, tail 14 padded to 16; K1
+    every block, K2 + K4 every 8th): SNR, the difference from
+    single-device ``nonuniform`` (float32 tail) on the same input, wall
+    and device ms/block, peak memory, the comm gate; (b) the same on a (2,
+    2) mesh; (c) ``sharded_local="uniform"`` (hc local, K1) at (1, 4);
+    (f) ``process_buffer`` equals ``process``; (e) a live reconfigure on
+    (a), converged past the settle span; (g) ``mesh=None``, every visible
+    GPU. Session K (d), the three-stage local engine, is a path of its own
+    (``session_k_nu3``)."""
+    import torch
+
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    h = _impulse(50, C)
+    path = _write_wav("k.wav", h)
+    rng = np.random.default_rng(51)
+    x = rng.standard_normal((C, 288 * N + 333)).astype(np.float32)
+    more = rng.standard_normal((4, C, 64 * N)).astype(np.float32)
+    nu_kernels = ("mac_hc", "mac_hc_tiled", "irfft_split_hc_tail_balanced")
+    _K.update(path=path, h=h)
+
+    def nu_mesh(tag, c_s, p_s):
+        what = f"session K ({tag}) sharded {c_s} x {p_s}"
+        sp, base = _k_session(cache, what, path, _k_mesh(c_s, p_s))
+        nu = sp._nuspec
+        p_tail = -(-(TAPS - 16 * N) // (8 * N))  # 14 at the flagship
+        if (sp._sharded.local_impl != "nonuniform"
+                or (nu.p_head, nu.p_tail, nu.m, nu.tail_store)
+                != (16, -(-p_tail // p_s) * p_s, 8 * N, "float32")):
+            raise SystemExit(f"chip_smoke: {what} built "
+                             f"{sp._sharded.local_impl} {nu}")
+        y, ms = _k_phase(what, nu_kernels, _k_measure, what, sp, base, x,
+                         more, h)
+        log(f"{what}: the out-of-place ring advance copies "
+            f"{_k_ring_copies(sp) / 1e6:.1f} MB a block over all shards "
+            "(read + written: twice that in traffic)")
+        return sp, y
+
+    sp_a, y_a = nu_mesh("a", 1, 4)
+
+    # the same input through single-device nonuniform (float32 tail)
+    def single():
+        sp1 = StreamProcessor(_config(path, "float32", mode="nonuniform"),
+                              cache, device=DEVICE)
+        return sp1, _stream(sp1, x, [1000, 37, 20000, 4567])
+
+    sp1, y1 = _uncounted(single)
+    diff = float(np.abs(y_a - y1).max())
+    rel = diff / float(np.abs(y1).max())
+    log(f"session K (a): max |sharded - single-device nonuniform (float32 "
+        f"tail)| {diff:.3e} (rel {rel:.2e}) over {y1.shape[1] // N} blocks")
+    if not rel <= REL_TOL:
+        raise SystemExit("chip_smoke: session K (a) differs from the "
+                         "single-device engine")
+
+    # (f) process_buffer over 64 aligned blocks == process from the start
+    sp_a.reset()
+    aligned = 64 * N
+    yb = sp_a.process_buffer(x[:, :aligned])
+    diff = float(np.abs(yb - y_a[:, :aligned]).max())
+    log(f"session K (f): process_buffer vs process max abs diff {diff:.3e}")
+    if not diff <= REL_TOL * float(np.abs(y_a[:, :aligned]).max()):
+        raise SystemExit("chip_smoke: session K process_buffer disagrees "
+                         "with process")
+
+    # (e) a live reconfigure: the two-phase crossfade converges
+    h2 = _impulse(52, C)
+    pre = rng.standard_normal((C, 3 * N + 100)).astype(np.float32)
+    y_pre = sp_a.process(pre)
+    state = sp_a._state
+    sp_a.reconfigure(_config(_write_wav("k2.wav", h2), mode="sharded"))
+    if sp_a._pending_swap is None:
+        raise SystemExit("chip_smoke: session K reconfigure queued no "
+                         "crossfade")
+    nu = sp_a._nuspec
+    settle = (nu.ratio * (nu.delay_blocks + 2) + nu.p_head) * N
+    x2 = rng.standard_normal((C, settle + 32 * N)).astype(np.float32)
+    y2 = _k_phase("session K (e)", ("mac_hc", "mac_hc_tiled"),
+                  sp_a.process, x2)
+    if sp_a._nu_old is not None or sp_a._state is state:
+        raise SystemExit("chip_smoke: session K crossfade did not complete")
+    full = np.concatenate([x[:, :aligned], pre, x2], axis=1)
+    t0 = aligned + y_pre.shape[1]
+    ref = _window_ref(full, h2, t0 + settle, y2.shape[1] - settle)
+    _snr_gate(_shifted_snr_db(y2[:, settle:], ref),
+              "session K (e) after reconfigure (past the settle span)")
+    _K.update(sp_a=sp_a, sp1=sp1)
+
+    nu_mesh("b", 2, 2)
+
+    what = "session K (c) sharded 1 x 4, uniform local"
+    sp_c, base = _k_session(cache, what, path, _k_mesh(1, 4), "uniform")
+    if sp_c._sharded.local_impl != "hc":
+        raise SystemExit(f"chip_smoke: {what} built "
+                         f"{sp_c._sharded.local_impl}")
+    _k_phase(what, ("mac_hc",), _k_measure, what, sp_c, base,
+             x[:, :96 * N], more, h)
+    log(f"{what}: the out-of-place ring advance copies "
+        f"{_k_ring_copies(sp_c) / 1e6:.1f} MB a block over all shards")
+    del sp_c
+
+    what = "session K (g) mesh=None"
+    t0 = time.perf_counter()
+    cfg = _config(path, mode="sharded")
+    sp_g = StreamProcessor(cfg, cache, device=DEVICE)
+    y_g = _k_phase(what, nu_kernels, _stream, sp_g, x[:, :96 * N], [5000])
+    mesh = sp_g._sharded.mesh
+    log(f"{what}: the default mesh is {mesh.shape['c']} x "
+        f"{mesh.shape['p']} over {torch.cuda.device_count()} visible GPU(s) "
+        f"({[str(d) for d in mesh.devices.flat]}), local engine "
+        f"{sp_g._sharded.local_impl}; {time.perf_counter() - t0:.1f} s")
+    if mesh.devices.size != torch.cuda.device_count():
+        raise SystemExit(f"chip_smoke: {what} mesh {mesh}")
+    _snr_gate(_worst_snr_db(y_g, x[:, :y_g.shape[1]], h), what)
+    torch.cuda.empty_cache()
+
+
+def _k_mesh(c_s, p_s):
+    from bfir_tpu_torch.parallel import mesh as M
+
+    return M.make_mesh(c_s, p_s, devices=[DEVICE] * (c_s * p_s))
+
+
+def session_k_nu3(cache):
+    """Session K (d): ``sharded_local="nonuniform3"`` at session J's
+    geometry (64 ch x 655 360 taps) on a (1, 4) mesh: J's inputs through
+    ``_long_stream`` (uneven chunks, 64-block calls, two super-cycles one
+    block a call; many far fires) under the comm gate; SNR, wall and device
+    ms/block, peak memory. The processor stays in ``_K`` for the rounds."""
+    import torch
+
+    j = _j_inputs()
+    what = "session K (d) sharded 1 x 4, nonuniform3"
+    sp, base = _k_session(cache, what, j["path"], _k_mesh(1, 4),
+                          "nonuniform3")
+    nu = sp._nuspec
+    geom = ((nu.p_head, nu.block_length), (nu.inner.p_head, nu.m1),
+            (nu.inner.p_tail, nu.inner.m), nu.inner.tail_store)
+    if (sp._sharded.local_impl != "nonuniform3"
+            or geom != ((16, N), (16, 8 * N), (8, 64 * N), "float32")):
+        raise SystemExit(f"chip_smoke: {what} built "
+                         f"{sp._sharded.local_impl} {nu}")
+    fires = (lambda cnt: "far fire" if cnt % 64 == 63
+             else "mid fire" if cnt % 8 == 7 else "head only")
+    ms, counts, xs, ys = _comm_gate(what, sp, _long_stream, sp, what,
+                                    j["x"], j["more"], j["singles"], fires,
+                                    "far fire")
+    peak = torch.cuda.max_memory_allocated() - base
+    far = ys.shape[1] // (64 * N)
+    log(f"{what}: {ys.shape[1] // N} blocks ({far} far fires), wall "
+        f"{ms:.4f} ms/block, {_device_line(counts)}; peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB before "
+        f"the session (C={C}, N={N}, {TAPS3} taps)")
+    if far < 2:
+        raise SystemExit(f"chip_smoke: {what} ran {far} far fires")
+    _snr_gate(_worst_snr_db(ys, xs, j["h"]), what)
+    _K["sp_d"] = sp
+
+
+def session_k_rounds():
+    """Wall ms/block in 8 alternating rounds of 64 blocks (``_alternate``;
+    timing only, these launches are not a path's): (1) ``process()`` of
+    session K (a) (the sharded two-stage engine on a (1, 4) mesh) against
+    the same filter on single-device ``nonuniform`` (float32 tail); (2) the
+    sharded engines' ``process_blocks`` on device input from a cycle
+    boundary, their macro steps against their step loops: the two-stage
+    engine (K a) and the three-stage one (K d)."""
+    import torch
+
+    sp_a, sp1, sp_d = _K.pop("sp_a"), _K.pop("sp1"), _K.pop("sp_d")
+    rng = np.random.default_rng(53)
+    blocks = 64
+    xh = rng.standard_normal((C, blocks * N)).astype(np.float32)
+    xd = torch.from_numpy(xh.reshape(C, blocks, N).transpose(1, 0, 2).copy()
+                          ).to(torch.device(DEVICE))
+    _alternate("session K rounds, process()",
+               {"sharded 1 x 4 nonuniform": lambda: sp_a.process(xh),
+                "nonuniform (float32 tail)": lambda: sp1.process(xh)},
+               8, blocks, TAPS)
+
+    def bulk(sp, macro):
+        eng = sp._sharded
+        cyc = eng._cycle_len()
+        for blk in xd[:(-sp._state.head.blockcounter) % cyc]:
+            sp._state, _ = eng.step(sp._state, sp._coeffs, blk)
+
+        def run():
+            if macro:
+                sp._state, y = eng.process_blocks(sp._state, sp._coeffs, xd)
+                return y
+            for blk in xd:
+                sp._state, y = eng.step(sp._state, sp._coeffs, blk)
+            return y
+        return run
+
+    for tag, sp, taps in (("two-stage (K a)", sp_a, TAPS),
+                          ("three-stage (K d)", sp_d, TAPS3)):
+        _alternate(f"session K rounds, sharded {tag} bulk",
+                   {"process_blocks (macro steps)": bulk(sp, True),
+                    "step loop": bulk(sp, False)}, 8, blocks, taps)
+    del sp_a, sp1, sp_d
     torch.cuda.empty_cache()
 
 
@@ -2590,6 +2993,11 @@ def main():
         ("session J (b)", ("mac_hc", "mac_hc_tiled_int",
                            "irfft_split_hc_tail_balanced"),
          session_j_two_stage, cache),
+        ("session K", ("mac_hc", "mac_hc_tiled",
+                       "irfft_split_hc_tail_balanced"), session_k, cache),
+        ("session K (d)", ("mac_hc", "mac_hc_tiled",
+                           "irfft_split_hc_tail_balanced"), session_k_nu3,
+         cache),
         ("checkpoint", ("quantize_hp_tpdf",), checkpoint_resume),
     ]
     total = dict.fromkeys(kernels, 0)
@@ -2601,6 +3009,7 @@ def main():
         if n == 0:
             raise SystemExit(f"chip_smoke: {name} never ran on the main paths")
     session_j_rounds()
+    session_k_rounds()
     render_cli()
     # K9's plain version launches 25602 kernels a call: a trace of that
     # many makes later traces lose events (_traced), so it is timed after

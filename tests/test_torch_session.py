@@ -26,6 +26,7 @@ from bfir_tpu_torch.core import spec as TS
 from bfir_tpu_torch.engine.cache import ArtifactCache
 from bfir_tpu_torch.engine.session import StreamProcessor
 from bfir_tpu_torch.io import wavio
+from bfir_tpu_torch.parallel import mesh as M
 
 torch.set_num_threads(1)
 
@@ -144,9 +145,12 @@ def test_session_guards(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             StreamProcessor(cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every mode is ported: "sharded" takes a mesh of the session's device
+    # type (parallel.mesh; tests/test_torch_session_sharded.py runs it)
+    cuda_mesh = M.Mesh(np.array([[torch.device("cuda", 0)]], dtype=object))
+    with pytest.raises(ValueError, match="mesh devices are cuda"):
         StreamProcessor(dataclasses.replace(cfg, engine_mode="sharded"),
-                        device="cpu")
+                        device="cpu", mesh=cuda_mesh)
     # the three-stage engine builds (two stages cover 16 x 256 + 16 x 2048)
     path, _ = _impulse(tmp_path, "h3.wav", 2, 70, taps=37000)
     sp3 = StreamProcessor(_config(path, mode="nonuniform3"),

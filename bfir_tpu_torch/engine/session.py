@@ -17,8 +17,12 @@ The device is explicit: ``StreamProcessor(config, *, device="cuda")`` runs
 the CUDA kernels and raises if CUDA is missing; ``device="cpu"`` runs their
 plain versions. ``mesh`` (``parallel.mesh.make_mesh``) is the sharded
 engine's mesh, of the session's device type; by default every visible
-device of that type on the partition axis ((1, 1) on the CPU). Where this
-session diverges from the reference:
+device of that type on the partition axis ((1, 1) on the CPU). The
+session drives a one-process mesh: a mesh that spans processes, or the
+default mesh inside a process group, raises ``ValueError`` (as the
+reference's session, which fetches each sharded output to the host, cannot
+run on one; ``parallel.sharded.ShardedEngine`` spans processes). Where
+this session diverges from the reference:
 
 - no engine fall-through: a kernel build or launch error, or a refused
   known-answer self-check, propagates (the reference catches every
@@ -76,6 +80,10 @@ from bfir_tpu_torch.utils.device import resolve_device
 from bfir_tpu_torch.utils.logging import pinfo
 from bfir_tpu_torch.utils.profiling import BlockTimer
 
+_ONE_PROCESS = ("the session drives a one-process mesh; a mesh that spans "
+                "processes runs through parallel.sharded.ShardedEngine")
+
+
 def _scan(step, state, coeffs, blocks: torch.Tensor):
     """``step`` over blocks [B, C, N] -> (state, out [B, C, N])."""
     outs = []
@@ -96,6 +104,8 @@ class StreamProcessor:
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(f"mesh devices are {mesh.device_type}, the "
                              f"session's device is {self.device.type}")
+        if mesh is not None and mesh.spans_processes:
+            raise ValueError(_ONE_PROCESS)
         self._mesh = mesh
         self._sharded = None  # parallel.sharded.ShardedEngine of "sharded"
         self.config = config
@@ -584,6 +594,8 @@ class StreamProcessor:
     def _resolve_mesh(self) -> M.Mesh:
         """The sharded engine's mesh: the one given, else every visible
         device of the session's type on the partition axis."""
+        if self._mesh is None and M.process_count() > 1:
+            raise ValueError(_ONE_PROCESS)
         if self._mesh is None:
             self._mesh = (M.make_mesh() if self.device.type == "cuda"
                           else M.make_mesh(devices=[self.device]))

@@ -1,34 +1,47 @@
 """Device mesh, shard layouts and the two collectives of the sharded engine.
 
-Counterpart of ``bfir_tpu/parallel/mesh.py``. The reference is
-single-controller: one process drives every device of a ``("c", "p")``
-mesh, channels sharded over ``"c"`` and filter partitions over ``"p"``
-(the reduce axis: each device MACs its partitions, the partials meet in a
-sum over ``"p"``). This port keeps that model on one process:
+Counterpart of ``bfir_tpu/parallel/mesh.py``. The reference drives a
+``("c", "p")`` mesh from one controller per process: channels sharded over
+"c" and filter partitions over "p" (the reduce axis: each device MACs its
+partitions, the partials meet in a sum over "p"). This port keeps that
+model:
 
 - ``Mesh`` holds a 2-D numpy array of ``torch.device`` with the axis names
-  ``("c", "p")``. A device may repeat: ``[cuda:0] * 4`` is a real (1, 4)
-  mesh on one card, and ``["cpu"] * 8`` is the tests' mesh.
+  ``("c", "p")``, and beside it the rank of the process that owns each
+  entry. A device may repeat: ``[cuda:0] * 4`` is a real (1, 4) mesh on one
+  card, and ``["cpu"] * 8`` is the tests' mesh.
 - Each shard is its own tensor on its mesh device. A sharded tensor is a
   *grid*: a numpy object array of shape (c, p) whose entry ``[ci, pi]`` is
-  shard (ci, pi)'s local tensor. ``Sharding`` (jax's ``NamedSharding``)
-  splits a global tensor into its grid and joins the grid back; an axis
-  sharded over no mesh axis is replicated, one copy per shard.
-- ``shard_map`` runs a per-shard body on every shard in lockstep. The body
-  is a generator: ``recv = yield PPERMUTE, x`` and ``s = yield PSUM, x``
-  are its collectives, served by ``ppermute_p`` and ``psum_p`` for all
-  shards at once. Nothing else crosses devices inside a body.
+  shard (ci, pi)'s local tensor, or None where another process owns the
+  shard. ``Sharding`` (jax's ``NamedSharding``) splits a global tensor into
+  this process's shards and joins a grid back into the global tensor on
+  every process; an axis sharded over no mesh axis is replicated, one copy
+  per shard.
+- ``shard_map`` runs a per-shard body on this process's shards in
+  lockstep. The body is a generator: ``recv = yield PPERMUTE, x`` and
+  ``s = yield PSUM, x`` are its collectives, served by ``ppermute_p`` and
+  ``psum_p`` for all shards at once. Nothing else crosses devices inside a
+  body.
 - ``ppermute_p`` and ``psum_p`` add the payload bytes they move per device
   to a counter (``comm_counts`` / ``reset_comm_counts``), also where a
   repeated device makes the copy a no-op.
 
-Multi-process meshes (``init_distributed`` with more than one process) are
-not ported yet: ROADMAP #9b puts a ``torch.distributed`` process group
-behind the same two collectives.
+Several processes (``init_distributed``, the reference's
+``jax.distributed.initialize``) form one ``torch.distributed`` group, and
+``make_mesh`` then spans every rank's devices in rank order. What crosses
+a process boundary moves by point-to-point messages of the group, posted
+together (``torch.distributed.batch_isend_irecv``): the ring shift between
+shards of different ranks, the partials to the rank that owns a row's
+first shard and its sum back, and the pieces a join needs. The sum keeps
+its fixed order, so a mesh that spans processes gives the same bits as the
+same mesh on one process. Under gloo, CUDA payloads are staged through
+host memory (gloo's send and receive do not check the device). The bytes
+that cross are counted apart (``cross_process_bytes``).
 """
 
 from __future__ import annotations
 
+import datetime
 import threading
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -36,46 +49,166 @@ import numpy as np
 import torch
 
 AXES = ("c", "p")
-PPERMUTE, PSUM = "ppermute", "psum"
+PPERMUTE, PSUM, JOIN = "ppermute", "psum", "join"
+
+
+class _Group(NamedTuple):
+    """The process group ``init_distributed`` brought up."""
+    rank: int
+    world: int
+    backend: str
+    devices: Tuple[Tuple[torch.device, ...], ...]  # each rank's devices
+
+
+# one group a process, as torch.distributed's default group it records
+_GROUP: Optional[_Group] = None
+
+
+def process_index() -> int:
+    """This process's rank (``jax.process_index``): 0 without a group."""
+    return _GROUP.rank if _GROUP else 0
+
+
+def process_count() -> int:
+    """The processes of the group (``jax.process_count``): 1 without one."""
+    return _GROUP.world if _GROUP else 1
 
 
 class Mesh:
-    """A ``("c", "p")`` grid of torch devices (``jax.sharding.Mesh``)."""
+    """A ``("c", "p")`` grid of torch devices (``jax.sharding.Mesh``) and
+    the rank that owns each entry (default: this process, every entry)."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, ranks=None):
         if devices.ndim != 2 or devices.size == 0:
             raise ValueError(f"mesh devices must be a non-empty 2-D array, "
                              f"got shape {devices.shape}")
         self.devices = devices
+        self.ranks = (np.full(devices.shape, process_index()) if ranks is None
+                      else np.asarray(ranks, dtype=np.int64).reshape(
+                          devices.shape))
         self.axis_names = AXES
         self.shape = {"c": devices.shape[0], "p": devices.shape[1]}
+        me = process_index()
+        self.local = [ij for ij in np.ndindex(devices.shape)
+                      if self.ranks[ij] == me]
+        if not self.local:
+            raise ValueError(f"process {me} owns no shard of the mesh "
+                             f"(ranks {sorted(set(self.ranks.flat))})")
+        self.process_ranks = sorted({int(r) for r in self.ranks.flat})
 
     @property
     def device_type(self) -> str:
         """"cuda" or "cpu": the one kind of device the mesh holds."""
         return self.devices.flat[0].type
 
+    @property
+    def spans_processes(self) -> bool:
+        return len(self.process_ranks) > 1
+
+    @property
+    def local_device(self) -> torch.device:
+        """This process's first mesh device (the mesh's first device on one
+        process)."""
+        return self.devices[self.local[0]]
+
+    def is_local(self, ci: int, pi: int) -> bool:
+        return self.ranks[ci, pi] == process_index()
+
     def grid(self, fn) -> np.ndarray:
-        """(c, p) object array of ``fn(ci, pi)``."""
+        """(c, p) object array of ``fn(ci, pi)`` on this process's shards,
+        None on the others'."""
         out = np.empty(self.devices.shape, dtype=object)
-        for ci, pi in np.ndindex(out.shape):
+        for ci, pi in self.local:
             out[ci, pi] = fn(ci, pi)
         return out
 
+    def first_local(self, g: np.ndarray):
+        """Grid ``g``'s entry at this process's first shard."""
+        return g[self.local[0]]
+
     def __repr__(self) -> str:
+        ranks = (f", ranks={self.ranks.flatten().tolist()}"
+                 if self.spans_processes else "")
         return (f"Mesh(c={self.shape['c']}, p={self.shape['p']}, "
-                f"devices={[str(d) for d in self.devices.flat]})")
+                f"devices={[str(d) for d in self.devices.flat]}{ranks})")
 
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
-    """Multi-process bring-up: a no-op for one process, as the reference."""
-    if num_processes and num_processes > 1:
-        raise NotImplementedError(
-            "multi-process meshes are not ported to bfir_tpu_torch yet: "
-            "ROADMAP Queue 1 #9b (a torch.distributed process group behind "
-            "ppermute_p and psum_p)")
+                     process_id: Optional[int] = None, *,
+                     backend: Optional[str] = None,
+                     local_device_ids: Optional[Sequence] = None,
+                     timeout: float = 60.0) -> None:
+    """Multi-process bring-up (``jax.distributed.initialize``; a no-op for
+    one process): joins the ``torch.distributed`` group at ``coordinator``
+    ("host:port", rank 0's address) as rank ``process_id`` of
+    ``num_processes``, and learns every rank's devices.
+
+    ``local_device_ids``: the devices this process owns (ints are CUDA
+    ordinals; a device may repeat); default ``cuda:{process_id %
+    device_count}`` where CUDA is available, else one CPU device.
+    ``backend``: "nccl" (default for CUDA devices) or "gloo" (default for
+    CPU devices; with CUDA devices only when asked for, its payloads staged
+    through host memory). ``timeout``: seconds a rank waits in the group's
+    set-up or in a message before it raises, so processes that diverge
+    fail instead of hanging. Nothing falls back: a refused backend or a
+    failed connection raises."""
+    global _GROUP
+    if not num_processes or num_processes <= 1:
+        return
+    import torch.distributed as dist
+
+    if _GROUP is not None or (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("init_distributed: a process group is already up")
+    if not coordinator:
+        raise ValueError("init_distributed: more than one process needs the "
+                         "coordinator's address, host:port")
+    if process_id is None or not 0 <= process_id < num_processes:
+        raise ValueError(f"init_distributed: process_id {process_id!r} is "
+                         f"not a rank of {num_processes} processes")
+    if local_device_ids is None:
+        local_device_ids = ([process_id % torch.cuda.device_count()]
+                            if torch.cuda.is_available() else ["cpu"])
+    devs = [_device(torch.device("cuda", d) if isinstance(d, int) else d)
+            for d in local_device_ids]
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1:
+        raise ValueError(f"init_distributed: local devices must be of one "
+                         f"type, got {local_device_ids!r}")
+    if backend is None:
+        backend = "nccl" if "cuda" in kinds else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"init_distributed: backend must be 'nccl' or "
+                         f"'gloo', got {backend!r}")
+    if not dist.is_available():
+        raise RuntimeError("init_distributed: this torch has no "
+                           "torch.distributed")
+    if backend == "nccl":
+        if not torch.cuda.is_available() or not dist.is_nccl_available():
+            raise RuntimeError("init_distributed: backend 'nccl' needs CUDA "
+                               "and a torch built with NCCL")
+        if "cuda" not in kinds:
+            raise ValueError("init_distributed: backend 'nccl' moves CUDA "
+                             f"tensors, the local devices are {kinds}")
+        torch.cuda.set_device(devs[0])
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout))
+    every = [None] * num_processes
+    dist.all_gather_object(every, [str(d) for d in devs])
+    _GROUP = _Group(process_id, num_processes, backend,
+                    tuple(tuple(torch.device(d) for d in r) for r in every))
+
+
+def shutdown_distributed() -> None:
+    """Leave the group ``init_distributed`` joined
+    (``jax.distributed.shutdown``); a no-op without one."""
+    global _GROUP
+    if _GROUP is not None:
+        import torch.distributed as dist
+
+        _GROUP = None
+        dist.destroy_process_group()
 
 
 def _device(d) -> torch.device:
@@ -87,23 +220,57 @@ def _device(d) -> torch.device:
     return dev
 
 
+def _entry(d) -> Tuple[Optional[int], torch.device]:
+    """A ``make_mesh`` device: ``(rank, device)`` or a device alone."""
+    if isinstance(d, tuple):
+        rank, dev = d
+        return int(rank), _device(dev)
+    return None, _device(d)
+
+
 def make_mesh(channel_shards: Optional[int] = None,
               partition_shards: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """Build a ("c", "p") mesh over ``devices`` (default: every visible
-    CUDA device; raises without CUDA, nothing falls back to the CPU).
-    Defaults: all devices on the partition axis."""
+    """Build a ("c", "p") mesh over ``devices``. Default: after
+    ``init_distributed``, every rank's devices in rank order (as
+    ``jax.devices()`` spans processes); else every visible CUDA device
+    (raises without CUDA, nothing falls back to the CPU). In a process
+    group each entry of ``devices`` is ``(rank, device)``, the device one
+    of that rank's, and the ranks must cover the group. Defaults: all
+    devices on the partition axis."""
+    g = _GROUP
     if devices is None:
-        if not torch.cuda.is_available():
+        if g is not None:
+            entries = [(r, d) for r, devs in enumerate(g.devices)
+                       for d in devs]
+        elif not torch.cuda.is_available():
             raise RuntimeError("make_mesh() builds over the CUDA devices, but "
                                "CUDA is not available; pass devices "
                                "(e.g. ['cpu'] * 8)")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devs = [_device(d) for d in devices]
+        else:
+            entries = [(None, torch.device("cuda", i))
+                       for i in range(torch.cuda.device_count())]
+    else:
+        entries = [_entry(d) for d in devices]
+    for rank, dev in entries:
+        if g is None and rank not in (None, 0):
+            raise ValueError(f"mesh entry of rank {rank}, but there is no "
+                             "process group: call init_distributed first")
+        if g is not None and rank is None:
+            raise ValueError("in a process group every mesh device names its "
+                             "owner rank: (rank, device)")
+        if g is not None and not (0 <= rank < g.world
+                                  and dev in g.devices[rank]):
+            raise ValueError(f"mesh entry {(rank, str(dev))}: rank {rank} "
+                             f"does not own {dev}")
+    devs = [d for _, d in entries]
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"mesh devices must be of one type, got "
                          f"{sorted({d.type for d in devs})}")
+    ranks = [r or 0 for r, _ in entries]
+    if g is not None and set(ranks) != set(range(g.world)):
+        raise ValueError(f"mesh ranks {sorted(set(ranks))} do not cover the "
+                         f"group of {g.world} processes")
     n = len(devs)
     if channel_shards is None and partition_shards is None:
         channel_shards, partition_shards = 1, n
@@ -116,7 +283,8 @@ def make_mesh(channel_shards: Optional[int] = None,
             f"mesh {channel_shards}x{partition_shards} != {n} devices")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(channel_shards, partition_shards))
+    shape = (channel_shards, partition_shards)
+    return Mesh(arr.reshape(shape), np.array(ranks).reshape(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +346,24 @@ class Sharding:
             local, dtype=dtype, device=self.mesh.devices[ci, pi]))
 
     def join(self, g: np.ndarray, device=None) -> torch.Tensor:
-        """The global tensor of grid ``g`` on ``device`` (default the mesh's
-        first device); replicated axes take shard index 0."""
-        dev = self.mesh.devices[0, 0] if device is None else device
+        """The global tensor of grid ``g`` on ``device`` (default this
+        process's first mesh device), on every process of the mesh;
+        replicated axes take shard index 0. Each piece another process owns
+        arrives from it once."""
+        mesh = self.mesh
+        dev = mesh.local_device if device is None else device
         c_ax = self.spec.index("c") if "c" in self.spec else None
         p_ax = self.spec.index("p") if "p" in self.spec else None
+        n_c = mesh.shape["c"] if c_ax is not None else 1
+        n_p = mesh.shape["p"] if p_ax is not None else 1
+        msgs = [(mesh.ranks[ij], r, ij) for ij in np.ndindex(n_c, n_p)
+                for r in mesh.process_ranks if r != mesh.ranks[ij]]
+        got = _exchange(JOIN, msgs, g.__getitem__,
+                        lambda ij: (mesh.first_local(g), dev))
         rows = []
-        for ci in range(self.mesh.shape["c"] if c_ax is not None else 1):
-            cols = [g[ci, pi].to(dev) for pi in
-                    range(self.mesh.shape["p"] if p_ax is not None else 1)]
+        for ci in range(n_c):
+            cols = [got[ci, pi].to(dev) if (ci, pi) in got else
+                    g[ci, pi].to(dev) for pi in range(n_p)]
             rows.append(cols[0] if len(cols) == 1
                         else torch.cat(cols, dim=p_ax))
         return rows[0] if len(rows) == 1 else torch.cat(rows, dim=c_ax)
@@ -246,6 +423,7 @@ def zeros_tree(shardings, shapes):
 
 _COMM_LOCK = threading.Lock()
 _COMM = {PPERMUTE: [0, 0], PSUM: [0, 0]}  # kind -> [calls, bytes per device]
+_CROSS = {PPERMUTE: [0, 0], PSUM: [0, 0], JOIN: [0, 0]}  # [sent, received]
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -256,40 +434,124 @@ def _count(kind: str, t: torch.Tensor) -> None:
 
 def comm_counts() -> dict:
     """{"ppermute": {"calls", "bytes"}, "psum": {...}}: collectives run
-    since the last reset, and the payload bytes each moved per device."""
+    since the last reset by this process, and the payload bytes each moved
+    per device."""
     with _COMM_LOCK:
         return {k: {"calls": v[0], "bytes": v[1]} for k, v in _COMM.items()}
 
 
+def cross_process_bytes() -> dict:
+    """{"ppermute" | "psum" | "join": {"sent", "received"}}: the bytes this
+    process sent to and received from other processes since the last
+    reset."""
+    with _COMM_LOCK:
+        return {k: {"sent": v[0], "received": v[1]}
+                for k, v in _CROSS.items()}
+
+
 def reset_comm_counts() -> None:
     with _COMM_LOCK:
-        for v in _COMM.values():
+        for v in (*_COMM.values(), *_CROSS.values()):
             v[0] = v[1] = 0
+
+
+class PeerError(RuntimeError):
+    """A message between processes failed: a peer diverged, timed out or
+    is gone."""
+
+
+def _exchange(kind: str, msgs, payload, like) -> dict:
+    """The messages ``msgs`` [(src rank, dst rank, key)], listed in the
+    same order on every process, as one batch of point-to-point sends and
+    receives: this process sends ``payload(key)`` where it is the source
+    and receives a tensor shaped as ``like(key)[0]`` onto device
+    ``like(key)[1]`` where it is the destination. Returns {key: received
+    tensor}; nothing is posted where no message touches this process.
+    Under gloo, CUDA payloads go through host memory."""
+    me = process_index()
+    mine = [(tag, m) for tag, m in enumerate(msgs) if me in m[:2]]
+    if not mine:
+        return {}
+    import torch.distributed as dist
+
+    host = _GROUP.backend == "gloo"
+    ops, got, sent, received = [], {}, 0, 0
+    for tag, (src, dst, key) in mine:
+        if src == me:
+            t = payload(key).contiguous()
+            t = t.cpu() if host else t
+            ops.append(dist.P2POp(dist.isend, t, int(dst), tag=tag))
+            sent += t.numel() * t.element_size()
+        else:
+            tmpl, dev = like(key)
+            buf = torch.empty(tmpl.shape, dtype=tmpl.dtype,
+                              device="cpu" if host else dev)
+            ops.append(dist.P2POp(dist.irecv, buf, int(src), tag=tag))
+            got[key] = buf
+            received += buf.numel() * buf.element_size()
+    peers = sorted({int(m[0] if m[1] == me else m[1]) for _, m in mine})
+    try:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    except RuntimeError as err:
+        raise PeerError(f"{kind} between processes failed while rank {me} "
+                        f"waited on rank(s) {peers}: {err}") from err
+    with _COMM_LOCK:
+        _CROSS[kind][0] += sent
+        _CROSS[kind][1] += received
+    return got
 
 
 def ppermute_p(mesh: Mesh, sent: np.ndarray) -> np.ndarray:
     """The ring rotation over "p": shard (c, i) receives shard (c, i-1)'s
     tensor (cyclically), copied to its device (a peer copy where the
-    devices differ; the sender's own tensor where they are the same)."""
+    devices differ; the sender's own tensor where they are the same; a
+    message where another process owns the sender)."""
     p = mesh.shape["p"]
-    _count(PPERMUTE, sent[0, 0])
-    return mesh.grid(lambda ci, pi: sent[ci, (pi - 1) % p].to(
-        mesh.devices[ci, pi], non_blocking=True))
+    _count(PPERMUTE, mesh.first_local(sent))
+    src = lambda ci, pi: (ci, (pi - 1) % p)
+    msgs = [(mesh.ranks[src(*ij)], mesh.ranks[ij], ij)
+            for ij in np.ndindex(mesh.devices.shape)
+            if mesh.ranks[src(*ij)] != mesh.ranks[ij]]
+    got = _exchange(PPERMUTE, msgs, lambda ij: sent[src(*ij)],
+                    lambda ij: (mesh.first_local(sent), mesh.devices[ij]))
+    return mesh.grid(lambda ci, pi: got[ci, pi].to(mesh.devices[ci, pi])
+                     if (ci, pi) in got else sent[src(ci, pi)].to(
+                         mesh.devices[ci, pi], non_blocking=True))
 
 
 def psum_p(mesh: Mesh, parts: np.ndarray) -> np.ndarray:
     """The sum over "p": each row's partials added in the fixed order
     i = 0..p-1 on the row's first device, the sum sent back to every shard
-    of the row (the same bits on each)."""
-    _count(PSUM, parts[0, 0])
-    sums = []
-    for ci in range(mesh.shape["c"]):
-        root = mesh.devices[ci, 0]
+    of the row (the same bits on each). Partials of other processes go to
+    the process that owns the row's first shard, and its sum goes once to
+    each other process that owns a shard of the row."""
+    _count(PSUM, mesh.first_local(parts))
+    c, p = mesh.shape["c"], mesh.shape["p"]
+    ranks, devices = mesh.ranks, mesh.devices
+    tmpl = mesh.first_local(parts)
+    msgs = [(ranks[ci, pi], ranks[ci, 0], (ci, pi))
+            for ci in range(c) for pi in range(1, p)
+            if ranks[ci, pi] != ranks[ci, 0]]
+    got = _exchange(PSUM, msgs, parts.__getitem__,
+                    lambda ij: (tmpl, devices[ij[0], 0]))
+    sums = {}
+    for ci in range(c):
+        if not mesh.is_local(ci, 0):
+            continue
+        root = devices[ci, 0]
         acc = parts[ci, 0].to(root)
-        for pi in range(1, mesh.shape["p"]):
-            acc = acc + parts[ci, pi].to(root, non_blocking=True)
-        sums.append(acc)
-    return mesh.grid(lambda ci, pi: sums[ci].to(mesh.devices[ci, pi],
+        for pi in range(1, p):
+            part = got.get((ci, pi), parts[ci, pi])
+            acc = acc + part.to(root, non_blocking=True)
+        sums[ci] = acc
+    owners = lambda ci: sorted({int(r) for r in ranks[ci]} - {ranks[ci, 0]})
+    first = lambda ci, r: devices[ci, list(ranks[ci]).index(r)]
+    back = [(ranks[ci, 0], r, (ci, r)) for ci in range(c) for r in owners(ci)]
+    for (ci, _), s in _exchange(PSUM, back, lambda k: sums[k[0]],
+                                lambda k: (tmpl, first(*k))).items():
+        sums[ci] = s
+    return mesh.grid(lambda ci, pi: sums[ci].to(devices[ci, pi],
                                                 non_blocking=True))
 
 
@@ -308,27 +570,34 @@ def _advance(gen, msg):
 
 
 def shard_map(mesh: Mesh, body, *grids) -> Tuple[np.ndarray, ...]:
-    """Run ``body(pi, *locals)`` on every shard in lockstep
+    """Run ``body(pi, *locals)`` on this process's shards in lockstep
     (``jax.shard_map``); ``pi`` is the shard's index on "p" (the
     reference's ``axis_index("p")``) and ``locals`` its entries of
     ``grids``. ``body`` is a generator whose ``yield (PPERMUTE | PSUM,
     tensor)`` runs that collective over all shards at once and returns the
     shard's result; it returns a tuple, and ``shard_map`` returns one grid
-    per element. Every shard must request the same collectives in the same
-    order (the control flow may depend on host values only)."""
+    per element (None at other processes' shards). Every shard must
+    request the same collectives in the same order (the control flow may
+    depend on host values only): shards of this process that diverge
+    raise at once, processes that diverge raise ``PeerError`` within the
+    group's timeout."""
     gens = mesh.grid(lambda ci, pi: body(pi, *(g[ci, pi] for g in grids)))
     msgs = mesh.grid(lambda ci, pi: _advance(gens[ci, pi], None))
     while True:
-        kinds = {m[0] if not isinstance(m, _Done) else None
-                 for m in msgs.flat}
+        kinds = {msgs[ij][0] if not isinstance(msgs[ij], _Done) else None
+                 for ij in mesh.local}
         if kinds == {None}:
             break
         if len(kinds) != 1:
             raise RuntimeError(f"shards diverged: they requested {kinds}")
         kind = kinds.pop()
         payload = mesh.grid(lambda ci, pi: msgs[ci, pi][1])
-        got = _COLLECTIVES[kind](mesh, payload)
+        try:
+            got = _COLLECTIVES[kind](mesh, payload)
+        except PeerError as err:
+            raise PeerError(f"shard_map: the {kind} collective failed: "
+                            f"{err}") from err
         msgs = mesh.grid(lambda ci, pi: _advance(gens[ci, pi], got[ci, pi]))
-    n_out = len(msgs[0, 0].value)
+    n_out = len(mesh.first_local(msgs).value)
     return tuple(mesh.grid(lambda ci, pi, k=k: msgs[ci, pi].value[k])
                  for k in range(n_out))

@@ -12,7 +12,10 @@ float32, whatever the filter length (``parallel/COMM_MODEL.md`` of the
 reference).
 
 The per-shard bodies are the reference's ``shard_map`` bodies, run by
-``mesh.shard_map`` on one process. The ring is *rolled* (slot j holds the
+``mesh.shard_map`` on each process's shards. On a mesh that spans
+processes (``mesh.init_distributed``) every process passes the whole input
+block and receives the whole output, and its state and coefficient grids
+hold its own shards only. The ring is *rolled* (slot j holds the
 spectrum of j blocks ago), and each advance builds it out of place,
 ``[newest | ring[:-1]]`` as the reference's ``jnp.concatenate``: on a mesh
 of repeated devices the received slot is the sender's own storage, so an
@@ -26,9 +29,10 @@ copies a shard's ring once per stage fire. Differences from the reference:
   every shard;
 - ``schedule="gspmd"`` (XLA's partitioner choosing the collectives) is
   not ported by design and raises ``ValueError``;
-- ``process_batch`` on the complex local engine joins the state onto the
-  mesh's first device and runs ``core.convolver.process_batch`` there (the
-  reference lets GSPMD partition it);
+- ``process_batch`` on the complex local engine joins the state onto
+  each process's first mesh device and runs
+  ``core.convolver.process_batch`` there (the reference lets GSPMD
+  partition it);
 - the sharded engines take float32 or bf16 tail planes; integer tiers
   raise ``ValueError`` for every nu local engine.
 
@@ -79,8 +83,8 @@ def _stack_grid(mesh: Mesh, blocks) -> np.ndarray:
 
 
 def _join_out(mesh: Mesh, out: np.ndarray) -> torch.Tensor:
-    """Output shards [C/c, N] (replicated over "p") -> [C, N] on the mesh's
-    first device."""
+    """Output shards [C/c, N] (replicated over "p") -> [C, N] on this
+    process's first mesh device."""
     return M.block_sharding(mesh).join(out)
 
 
@@ -716,8 +720,8 @@ class ShardedEngine:
         return M.split_tree(self._state_shardings, state)
 
     def join_state(self, state, device=None):
-        """This engine's state -> global tensors on ``device`` (default the
-        mesh's first device), in the reference's layout."""
+        """This engine's state -> global tensors on ``device`` (default
+        this process's first mesh device), in the reference's layout."""
         return M.join_tree(self._state_shardings, state, device)
 
     def shard_coeffs(self, coeffs):
@@ -766,7 +770,7 @@ class ShardedEngine:
 
     def step(self, state, coeffs, block):
         """One block [C, N] (a tensor on any device, or an array) -> (state,
-        out [C, N] on the mesh's first device)."""
+        out [C, N] on this process's first mesh device)."""
         return self._step_fn(state, coeffs, block)
 
     def nu_crossfade_steps(self):
@@ -836,12 +840,13 @@ class ShardedEngine:
     def process_batch(self, state, coeffs, blocks):
         """Bulk form over [B, C, N]: on the complex engine
         ``core.convolver.process_batch`` on the state and coefficients
-        joined onto the mesh's first device (rolled <-> pointer ring on the
-        way in and out, so ``step`` and ``process_batch`` interoperate); on
-        the halfcomplex engines ``process_blocks``."""
+        joined onto this process's first mesh device (rolled <-> pointer
+        ring on the way in and out, so ``step`` and ``process_batch``
+        interoperate; every process of the mesh runs it whole); on the
+        halfcomplex engines ``process_blocks``."""
         if self.local_impl != "complex":
             return self.process_blocks(state, coeffs, blocks)
-        dev = self.mesh.devices[0, 0]
+        dev = self.mesh.local_device
         if not torch.is_tensor(blocks):
             blocks = torch.from_numpy(np.ascontiguousarray(blocks))
         st = cv.state_from_rolled(self.join_state(state))
@@ -854,9 +859,9 @@ def dryrun(n_devices: Optional[int] = None,
            mesh: Optional[Mesh] = None) -> None:
     """One sharded run on tiny shapes per local engine over ``mesh`` (or a
     mesh of the first ``n_devices`` CUDA devices, all of them by default),
-    each checked against the single-device engine on the mesh's first
-    device (max abs error 1e-5 for the uniform engines, 1e-4 for the
-    non-uniform ones, the reference's bounds)."""
+    each checked against the single-device engine on this process's
+    first mesh device (max abs error 1e-5 for the uniform engines, 1e-4
+    for the non-uniform ones, the reference's bounds)."""
     if mesh is None:
         nd = n_devices or (torch.cuda.device_count()
                            if torch.cuda.is_available() else 1)
@@ -865,7 +870,7 @@ def dryrun(n_devices: Optional[int] = None,
         mesh = M.make_mesh(channel_shards=2 if nd % 2 == 0 and nd > 1 else 1,
                            devices=devs)
     m = mesh
-    dev = m.devices[0, 0]
+    dev = m.local_device
     c = 2 * m.shape["c"]
     p = 2 * m.shape["p"]
     spec = FilterSpec(block_length=128, n_partitions=p, dtype="float32")

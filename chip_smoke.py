@@ -118,10 +118,25 @@ Phases (any failure exits non-zero before the last line is printed):
     ``process()`` against single-device ``nonuniform`` and the sharded
     engines' macro steps against their step loops in 8 alternating
     rounds of 64 blocks;
-18. checkpoint: a complex-engine stream with K9's dither on the card,
+18. session L: the sharded engine on meshes that span two processes: two
+    worker processes (``session_l_worker``) join one gloo group through
+    ``parallel.mesh.init_distributed``, each owning two shards on the one
+    card, and run at the flagship (a) the two-stage local engine on a (1,
+    4) and a (2, 2) mesh, (b) the hc local engine at (1, 4), (c)
+    nonuniform3 at session J's 655 360 taps at (1, 4), 320 blocks each
+    (128 one step a call, 192 through ``process_blocks``); each rank's
+    collectives against the comm model, both ranks' outputs equal, SNR
+    against scipy, the max relative difference from the one-process engine
+    on the same mesh shape and input (<= 1e-6; bit-equality logged); each
+    rank's wall and CUDA-event ms/block, peak memory and the bytes that
+    crossed between the processes, beside the one-process engine's walls;
+    where two cards or more are visible, (a) again under NCCL, one rank a
+    card (else one line says it did not run); the workers' launch counts
+    are this path's;
+19. checkpoint: a complex-engine stream with K9's dither on the card,
     saved after 5 blocks (``engine.checkpoint``), loaded and resumed:
     outputs and dithered samples bit-equal to the uninterrupted run;
-19. the render CLI at its default ``--dtype`` (float64: ``extended``)
+20. the render CLI at its default ``--dtype`` (float64: ``extended``)
     with ``--out-format float64``, >= 240 dB, and with ``--auto-attenuate``
     on a +12 dB impulse: output peak <= 1 and the level applied equal to
     the port's probe run on the card.
@@ -147,8 +162,8 @@ planes (h + 128 lanes) on 64 rows, K17 also timed at [64, 1024] (h =
 512).
 
 The launch counters are zeroed just before each path (sessions A-K, the
-two renders, the checkpoint) and read just after it; each path must have
-launched its kernels. The last two lines are a JSON object describing the card
+two renders, the checkpoint; session L's in each worker process) and read
+just after it; each path must have launched its kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
 their times at the tail shape as well, under "also": K14 at [64, 8192]
 forward, the others at [64, 16384]; K2 at session J's two shapes and
@@ -2590,10 +2605,9 @@ def _uncounted(fn, *args):
             k.launches = saved[name]
 
 
-def _k_stages(sp):
-    """(stage block counters, stage block lengths) of a sharded session:
-    each counter counts its stage's fires."""
-    st, eng = sp._state, sp._sharded
+def _k_stages(eng, st):
+    """(stage block counters, stage block lengths) of a sharded engine's
+    state: each counter counts its stage's fires."""
     if eng.local_impl == "nonuniform3":
         nu = eng.nuspec
         return ((st.head.blockcounter, st.tail.head.blockcounter,
@@ -2604,22 +2618,23 @@ def _k_stages(sp):
     return (st.blockcounter,), (N,)
 
 
-def _comm_gate(what, sp, fn, *args):
-    """fn(*args) (plain streaming blocks on a sharded session) with the
-    collective counter reset before it and held after it to the comm model
-    (parallel/COMM_MODEL.md): one ppermute and one psum per stage fire,
-    each of 2·(C/c)·Hp·4 bytes, the fires counted from the block range
-    (every R-th block, every r1·r2-th for the far stage). Any mismatch
-    fails the run. Returns fn's result."""
+def _comm_gate(what, eng, state, fn, *args):
+    """fn(*args) (plain streaming blocks on sharded engine ``eng``, whose
+    current state ``state()`` returns) with the collective counter reset
+    before it and held after it to the comm model (parallel/COMM_MODEL.md):
+    one ppermute and one psum per stage fire, each of 2·(C/c)·Hp·4 bytes,
+    the fires counted from the block range (every R-th block, every
+    r1·r2-th for the far stage). Any mismatch fails the run. On a mesh
+    that spans processes the counts are this process's. Returns fn's
+    result."""
     from bfir_tpu_torch.parallel import mesh as M
 
-    eng = sp._sharded
     c_l = C // eng.mesh.shape["c"]
-    cnt0, widths = _k_stages(sp)
+    cnt0, widths = _k_stages(eng, state())
     M.reset_comm_counts()
     res = fn(*args)
     got = M.comm_counts()
-    cnt1, _ = _k_stages(sp)
+    cnt1, _ = _k_stages(eng, state())
     blocks = range(cnt0[0], cnt1[0])
     period = [1, 8, 64][:len(widths)]
     fires = [sum(1 for k in blocks if k % q == q - 1) for q in period]
@@ -2676,8 +2691,8 @@ def _k_measure(what, sp, base, x, more, h, taps=TAPS):
 
     y = _stream(sp, x, [1000, 37, 20000, 4567])
     counts = {}
-    ms, ys = _comm_gate(what, sp, _timed_blocks, sp, more, what, counts,
-                        taps)
+    ms, ys = _comm_gate(what, sp._sharded, lambda: sp._state, _timed_blocks,
+                        sp, more, what, counts, taps)
     peak = torch.cuda.max_memory_allocated() - base
     xs = np.concatenate([x, *more], axis=1)
     log(f"{what}: {xs.shape[1] // N} blocks, wall {ms:.4f} ms/block, "
@@ -2849,8 +2864,9 @@ def session_k_nu3(cache):
                          f"{sp._sharded.local_impl} {nu}")
     fires = (lambda cnt: "far fire" if cnt % 64 == 63
              else "mid fire" if cnt % 8 == 7 else "head only")
-    ms, counts, xs, ys = _comm_gate(what, sp, _long_stream, sp, what,
-                                    j["x"], j["more"], j["singles"], fires,
+    ms, counts, xs, ys = _comm_gate(what, sp._sharded, lambda: sp._state,
+                                    _long_stream, sp, what, j["x"],
+                                    j["more"], j["singles"], fires,
                                     "far fire")
     peak = torch.cuda.max_memory_allocated() - base
     far = ys.shape[1] // (64 * N)
@@ -2907,6 +2923,262 @@ def session_k_rounds():
                     "step loop": bulk(sp, False)}, 8, blocks, taps)
     del sp_a, sp1, sp_d
     torch.cuda.empty_cache()
+
+
+# Session L: the sharded engine on meshes that span two processes
+L_BLOCKS = 320      # blocks a phase: 2 x 64 one step a call, then 192
+                    # through process_blocks
+L_TIMEOUT = 120.0   # seconds a worker waits on its peer before it fails
+L_REL_TOL = 1e-6    # against the one-process engine on the same mesh shape
+_NU_KERNELS = ("mac_hc", "mac_hc_tiled", "irfft_split_hc_tail_balanced")
+# (tag, mesh shape, local engine, the kernels its phase must launch)
+L_PHASES = (("a", (1, 4), "nonuniform", _NU_KERNELS),
+            ("a", (2, 2), "nonuniform", _NU_KERNELS),
+            ("b", (1, 4), "hc", ("mac_hc",)),
+            ("c", (1, 4), "nonuniform3", _NU_KERNELS))
+
+
+def _l_inputs(local):
+    """A phase's impulse (session K's; session J's 655 360 taps for
+    nonuniform3) and its blocks [L_BLOCKS, C, N]."""
+    h = (_impulse(30, C, TAPS3, TAPS3 / 5.0) if local == "nonuniform3"
+         else _impulse(50, C, TAPS))
+    rng = np.random.default_rng(54)
+    return h, rng.standard_normal((L_BLOCKS, C, N)).astype(np.float32)
+
+
+def _l_engine(mesh, local, h):
+    from bfir_tpu_torch.core.spec import FilterSpec
+    from bfir_tpu_torch.parallel import sharded as SH
+
+    eng = SH.ShardedEngine(FilterSpec(N, h.shape[1] // N, "float32"), C,
+                           mesh, local_impl=local)
+    return eng, eng.prepare_coeffs(h)
+
+
+def _l_drive(eng, co, x, holder):
+    """Blocks x [B, C, N] (host) through ``eng`` from ``holder["st"]``: the
+    first 64 one ``step`` a call (the first calls of every kernel, plan and
+    connection among them), the next 64 the same, the rest through
+    ``process_blocks`` (the macro steps). Returns (outputs [B, C, N] on the
+    host, wall ms/block of each part, CUDA-event span ms/block of each
+    part)."""
+    import torch
+
+    xs = torch.from_numpy(x)
+    outs, wall, span = [], [], []
+    for part, macro in ((xs[:64], False), (xs[64:128], False),
+                        (xs[128:], True)):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        if macro:
+            holder["st"], y = eng.process_blocks(holder["st"], co, part)
+        else:
+            ys = []
+            for blk in part:
+                holder["st"], y = eng.step(holder["st"], co, blk)
+                ys.append(y)
+            y = torch.stack(ys)
+        e1.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3 / len(part))
+        span.append(e0.elapsed_time(e1) / len(part))
+        outs.append(y.cpu().numpy())
+    return np.concatenate(outs), wall, span
+
+
+def _l_phases(backend):
+    return L_PHASES if backend == "gloo" else L_PHASES[:2]
+
+
+def _l_file(backend, tag, shape):
+    return os.path.join(WORK, f"l_{backend}_{tag}_{shape[0]}x{shape[1]}.npy")
+
+
+def session_l_worker(port, rank, backend, geometry):
+    """One rank of session L, in a process of its own (``session_l``
+    starts two): joins the group (``init_distributed`` with ``backend``;
+    under gloo each rank owns two shards on the first card, under NCCL on
+    card ``rank``), zeroes the launch counts, drives every phase of
+    ``_l_phases`` on ``make_mesh`` over both ranks under the comm gate,
+    and prints its numbers as the last line, a JSON object. Rank 0 saves
+    each phase's output for the parent's gates. ``geometry``: the parent's
+    C, N, TAPS, TAPS3, DEVICE and WORK."""
+    import hashlib
+
+    import torch
+
+    from bfir_tpu_torch.parallel import mesh as M
+
+    global C, N, TAPS, TAPS3, DEVICE, WORK
+    C, N, TAPS, TAPS3, DEVICE, WORK = (
+        geometry[k] for k in ("C", "N", "TAPS", "TAPS3", "DEVICE", "WORK"))
+    card = f"{DEVICE}:{rank if backend == 'nccl' else 0}"
+    M.init_distributed(f"localhost:{port}", 2, rank, backend=backend,
+                       local_device_ids=[card, card], timeout=L_TIMEOUT)
+    try:
+        for k in _kernels().values():
+            k.launches = 0
+        phases = {}
+        for tag, shape, local, names in _l_phases(backend):
+            what = (f"session L ({tag}) {backend} {shape[0]} x {shape[1]} "
+                    f"{local}, rank {rank}")
+            h, x = _l_inputs(local)
+            eng, co = _l_engine(M.make_mesh(*shape), local, h)
+            holder = {"st": eng.init_state()}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y, wall, span = _k_phase(what, names, _comm_gate, what, eng,
+                                     lambda: holder["st"], _l_drive, eng, co,
+                                     x, holder)
+            cross = M.cross_process_bytes()
+            phases[f"{tag} {shape[0]}x{shape[1]}"] = {
+                "wall_ms": wall, "span_ms": span,
+                "peak_mib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 20,
+                "cross": cross, "sha256": hashlib.sha256(
+                    y.tobytes()).hexdigest()}
+            log(f"{what}: {eng.mesh}; cross-process bytes {cross}")
+            if rank == 0:
+                np.save(_l_file(backend, tag, shape), y)
+            del eng, co, holder
+            torch.cuda.empty_cache()
+        launches = {n: k.launches for n, k in _kernels().items()
+                    if k.launches}
+        print(json.dumps({"rank": rank, "phases": phases,
+                          "launches": launches}), flush=True)
+    finally:
+        M.shutdown_distributed()
+
+
+def _l_workers(backend):
+    """Both ranks of ``backend``'s run; their logs relayed. A worker that
+    fails or outlasts its time fails the run. Returns the two reports."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    geometry = dict(C=C, N=N, TAPS=TAPS, TAPS3=TAPS3, DEVICE=DEVICE,
+                    WORK=WORK)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"session_l_worker({port}, {rank}, {backend!r}, {geometry!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    reports = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=900)
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                log(f"  [rank {rank}] {line}")
+            if proc.returncode or not lines:
+                raise SystemExit(f"chip_smoke: session L rank {rank} "
+                                 f"({backend}) failed, exit "
+                                 f"{proc.returncode}:\n{out[-3000:]}")
+            reports.append(json.loads(lines[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"session L ({backend}): both ranks done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return reports
+
+
+def _l_one_process(shape, local, h, x):
+    """The one-process sharded engine on the same mesh shape (its shards
+    repeating the card, as session K's) over the same blocks."""
+    from bfir_tpu_torch.parallel import mesh as M
+
+    eng, co = _l_engine(M.make_mesh(*shape, devices=[DEVICE] * 4), local, h)
+    return _l_drive(eng, co, x, {"st": eng.init_state()})
+
+
+def _l_times(ph):
+    """A phase's walls and CUDA-event spans, ms/block, by part."""
+    return ", ".join(
+        f"{part} wall {w:.4f} span {e:.4f}" for part, w, e in zip(
+            ("one step a call (first 64, warm-up)", "one step a call",
+             "process_blocks"), ph["wall_ms"], ph["span_ms"])) + " ms/block"
+
+
+def session_l():
+    """The sharded engine on meshes that span two processes, at the
+    flagship (64 ch x 131072 taps, N = 1024, float32): two worker processes
+    (``session_l_worker``) under ``init_distributed(..., backend="gloo")``,
+    each owning two shards on the card, run (a) the two-stage local engine
+    on a (1, 4) and a (2, 2) mesh, (b) the hc local engine at (1, 4) and
+    (c) nonuniform3 at session J's 655 360 taps at (1, 4), each 128 blocks
+    one step a call and 192 through ``process_blocks``, under the comm gate
+    on each rank. Gates: both ranks' outputs equal, worst-channel SNR
+    against scipy, the max relative difference from the one-process engine
+    on the same mesh shape and input (bit-equality logged). Logged: each
+    rank's wall and CUDA-event ms/block, peak memory and the bytes that
+    crossed between the processes, beside the one-process engine's walls.
+    Where two cards or more are visible, (a)
+    runs again under NCCL, one rank a card. Returns the workers' launch
+    counts, summed."""
+    import torch
+
+    backends = ["gloo"]
+    if torch.cuda.device_count() >= 2:
+        backends.append("nccl")
+    else:
+        log("session L: the NCCL phase did not run: "
+            f"{torch.cuda.device_count()} visible GPU, and NCCL refuses two "
+            "ranks on one card")
+    total, refs = {}, {}
+    for backend in backends:
+        reports = _l_workers(backend)
+        for rep in reports:
+            for name, n in rep["launches"].items():
+                total[name] = total.get(name, 0) + n
+        for tag, shape, local, _ in _l_phases(backend):
+            key = f"{tag} {shape[0]}x{shape[1]}"
+            what = (f"session L ({tag}) {backend} {shape[0]} x {shape[1]} "
+                    f"{local}")
+            for rep in reports:
+                ph = rep["phases"][key]
+                log(f"{what}, rank {rep['rank']}: {_l_times(ph)}; peak device "
+                    f"memory {ph['peak_mib']:.1f} MiB; "
+                    "cross-process bytes a block sent/received: " + ", ".join(
+                        f"{k} {v['sent'] / L_BLOCKS:.0f}/"
+                        f"{v['received'] / L_BLOCKS:.0f}"
+                        for k, v in ph["cross"].items()))
+            if reports[0]["phases"][key]["sha256"] != \
+                    reports[1]["phases"][key]["sha256"]:
+                raise SystemExit(f"chip_smoke: {what}: the ranks' outputs "
+                                 "differ")
+            y = np.load(_l_file(backend, tag, shape))
+            h, x = _l_inputs(local)
+            if (shape, local) not in refs:
+                ref, wall, span = _uncounted(_l_one_process, shape, local, h,
+                                             x)
+                refs[shape, local] = ref
+                log(f"{what}: the one-process engine on the same mesh shape: "
+                    + _l_times({"wall_ms": wall, "span_ms": span}))
+            ref = refs[shape, local]
+            rel = float(np.abs(y - ref).max()) / float(np.abs(ref).max())
+            log(f"{what}: max |multi-process - one-process| / max|one-process|"
+                f" {rel:.3e} (bound {L_REL_TOL:g}), "
+                f"{'bit-equal' if np.array_equal(y, ref) else 'not bit-equal'}"
+                f" over {L_BLOCKS} blocks")
+            if not rel <= L_REL_TOL:
+                raise SystemExit(f"chip_smoke: {what} differs from the "
+                                 "one-process engine")
+            xs = x.transpose(1, 0, 2).reshape(C, -1)
+            _snr_gate(_worst_snr_db(y.transpose(1, 0, 2).reshape(C, -1), xs,
+                                    h), what)
+    del refs
+    torch.cuda.empty_cache()
+    return total
 
 
 def checkpoint_resume():
@@ -3005,6 +3277,9 @@ def main():
         counts = run_path(what, names, fn, *args)
         for name, n in counts.items():
             total[name] += n
+    # session L's paths run in its worker processes, each counting its own
+    for name, n in session_l().items():
+        total[name] += n
     for name, n in total.items():
         if n == 0:
             raise SystemExit(f"chip_smoke: {name} never ran on the main paths")

@@ -261,8 +261,12 @@ def test_make_mesh_validation():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             M.make_mesh()
     M.init_distributed()  # one process: a no-op
-    with pytest.raises(NotImplementedError, match="#9b"):
-        M.init_distributed("localhost:1234", 2, 0)
+    # NCCL for CPU devices is refused before any connection is attempted
+    # (RuntimeError on a host without CUDA, ValueError on one with it)
+    with pytest.raises((RuntimeError, ValueError), match="nccl"):
+        M.init_distributed("localhost:1234", 2, 0, backend="nccl",
+                           local_device_ids=["cpu"])
+    assert M.process_count() == 1
 
 
 def test_sharding_split_join_round_trip():

@@ -28,7 +28,7 @@ with a whole two-stage engine at block M1 = ratio1 * N.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -307,12 +307,20 @@ def _phase(state, block) -> int:
     return state.head.blockcounter % (state.inbuf.shape[-1] // block.shape[-1])
 
 
-def step_nu(state: NuState, coeffs: NuCoeffs,
-            block: torch.Tensor) -> Tuple[NuState, torch.Tensor]:
+def step_nu(state: NuState, coeffs: NuCoeffs, block: torch.Tensor,
+            phase: Optional[int] = None) -> Tuple[NuState, torch.Tensor]:
     """One N-block through the two-stage engine. Outputs match the uniform
     engine (``step_hc`` at P = p_head + ratio * p_tail) to fp rounding. The
-    tail fires on the phase R-1 block (a host branch)."""
-    phase = _phase(state, block)
+    tail fires on the phase R-1 block (a host branch). ``phase``: an int
+    pins the block's phase instead of the counter's (the block goes to
+    ``inbuf`` at ``phase * N`` and the tail fires iff ``phase == R - 1``),
+    as the per-phase latency measurement steps it; None takes it from the
+    counter."""
+    ratio = state.inbuf.shape[-1] // block.shape[-1]
+    if phase is None:
+        phase = state.head.blockcounter % ratio
+    elif not 0 <= phase < ratio:
+        raise ValueError(f"phase {phase} outside [0, {ratio})")
     head, y_head = _head_step(state.head, coeffs.head, block)
     return _cycle(state, block, phase, head, y_head,
                   lambda tail, mb: _tail_step(tail, coeffs.tail, mb))

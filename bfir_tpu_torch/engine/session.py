@@ -42,7 +42,10 @@ this session diverges from the reference:
   float32); ``sharded`` with an integer tail store raises ``ValueError``;
 - ``extended`` outputs float64 on every host (the reference: only on x64
   hosts);
-- ``nonuniform_split`` on a filter the head alone covers raises
+- ``nonuniform_split`` builds ``nonuniform`` (and so ``hc`` where the
+  head alone covers the filter) when its tail planes do not split into R
+  128-lane bands (N <= 64), the engine the reference's fall-through
+  reaches; where they split, a filter the head alone covers raises
   ``ValueError`` (the reference tries the next engine);
 - the block counter is a host int, so no block waits on the device to
   learn its phase;
@@ -380,6 +383,11 @@ class StreamProcessor:
                          + nu3.inner.p_head * nu3.m1)
             if taps <= two_stage:
                 impl = "nonuniform"  # two stages cover it
+        if impl == "nonuniform_split":
+            try:
+                NU.split_band_len(self._nu_geometry(fspec, impl))
+            except ValueError:  # no 128-lane bands (N <= 64)
+                impl = "nonuniform"
         if impl in ("nonuniform", "nonuniform_split"):
             head = self._nu_geometry(fspec, impl).p_head
             if fspec.n_partitions <= head:  # the head alone covers it

@@ -10,7 +10,17 @@ layout contract is kept:
 - split planes: ``(re, im)``, each ``[..., n//2 + 1]``;
 - halfcomplex planes: ``(hr, hi)``, each ``[..., n//2]``, with lane 0 of
   ``hi`` holding the Nyquist bin's real part (X[0] and X[n/2] are real for
-  real input, so both fit in lane 0).
+  real input, so both fit in lane 0);
+- ``n`` pads or truncates the transformed axis as numpy's does; a tail is
+  the upper half ``[n//2, n)`` of an inverse, the overlap-save output;
+  ``cols`` / ``rows`` are ``(start, count)`` output selections.
+
+The leading-axis forms (``fft0``, ``ifft0``, ``fft0_split``,
+``ifft0_slice``) are the reference's left-matmul alternatives; here they
+are ``torch.fft`` along dim 0. The reference's mode knobs (``set_mode``,
+``set_karatsuba``, ``set_matmul_precision``) choose among its TPU
+implementations and their MXU precision; there is one implementation
+here, so they have no counterpart.
 
 The reference's half-DFT tail basis (``_hc_tail_weights``) is kept for
 the one kernel that multiplies by it, K12 (``step_hc_fused``).
@@ -25,12 +35,74 @@ import numpy as np
 import torch
 
 
-def rfft(x: torch.Tensor, n: Optional[int] = None, dim: int = -1) -> torch.Tensor:
-    return torch.fft.rfft(x, n=n, dim=dim)
+def rfft(x: torch.Tensor, n: Optional[int] = None,
+         axis: int = -1) -> torch.Tensor:
+    return torch.fft.rfft(x, n=n, dim=axis)
 
 
-def irfft(y: torch.Tensor, n: Optional[int] = None, dim: int = -1) -> torch.Tensor:
-    return torch.fft.irfft(y, n=n, dim=dim)
+def irfft(y: torch.Tensor, n: Optional[int] = None,
+          axis: int = -1) -> torch.Tensor:
+    return torch.fft.irfft(y, n=n, dim=axis)
+
+
+def fft(y: torch.Tensor, n: Optional[int] = None,
+        axis: int = -1) -> torch.Tensor:
+    return torch.fft.fft(y, n=n, dim=axis)
+
+
+def ifft(y: torch.Tensor, n: Optional[int] = None,
+         axis: int = -1) -> torch.Tensor:
+    return torch.fft.ifft(y, n=n, dim=axis)
+
+
+def _check_range(what: str, sel, m: int) -> None:
+    start, count = sel
+    if start < 0 or count < 1 or start + count > m:
+        raise ValueError(f"{what} [{start}, {start + count}) out of range "
+                         f"for {m}")
+
+
+def _cfft_split(yr, yi, n, inverse: bool, sel, dim: int, what: str):
+    """Complex FFT along ``dim`` of split planes, keeping ``sel`` =
+    (start, count) of its outputs (all when None) -> (re, im)."""
+    m = n or yr.shape[dim]
+    if sel is not None:
+        _check_range(what, sel, m)
+    fn = torch.fft.ifft if inverse else torch.fft.fft
+    z = fn(torch.complex(yr, yi), n=m, dim=dim)
+    if sel is not None:
+        z = z.narrow(dim, *sel)
+    return z.real, z.imag
+
+
+def cfft_split(yr: torch.Tensor, yi: torch.Tensor, n: Optional[int] = None,
+               inverse: bool = False, cols=None):
+    """Complex FFT over the last axis on split re/im planes -> (re, im);
+    ``cols=(start, count)`` keeps output columns [start, start + count)."""
+    return _cfft_split(yr, yi, n, inverse, cols, -1, "cols")
+
+
+def fft0(y: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """FFT over the leading axis."""
+    return torch.fft.fft(y, n=n, dim=0)
+
+
+def ifft0(y: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """Inverse FFT over the leading axis."""
+    return torch.fft.ifft(y, n=n, dim=0)
+
+
+def fft0_split(yr: torch.Tensor, yi: torch.Tensor, n: Optional[int] = None,
+               inverse: bool = False, rows=None):
+    """Complex FFT over the leading axis on split re/im planes -> (re, im);
+    ``rows=(start, count)`` keeps output rows [start, start + count)."""
+    return _cfft_split(yr, yi, n, inverse, rows, 0, "rows")
+
+
+def ifft0_slice(y: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """``ifft(y, axis=0)[start : start + count]``."""
+    _check_range("rows", (start, count), y.shape[0])
+    return torch.fft.ifft(y, dim=0)[start:start + count]
 
 
 def rfft_split(x: torch.Tensor, n: Optional[int] = None):
@@ -44,6 +116,19 @@ def irfft_split(yr: torch.Tensor, yi: torch.Tensor,
     """Inverse rfft from split re/im planes -> real [..., n]."""
     m = n or 2 * (yr.shape[-1] - 1)
     return torch.fft.irfft(torch.complex(yr, yi), n=m, dim=-1)
+
+
+def irfft_split_tail(yr: torch.Tensor, yi: torch.Tensor,
+                     n: Optional[int] = None) -> torch.Tensor:
+    """``irfft_split(yr, yi, n)[..., n//2:]``: only the upper half."""
+    m = n or 2 * (yr.shape[-1] - 1)
+    return irfft_split(yr, yi, m)[..., m // 2:]
+
+
+def irfft_tail(y: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """``irfft(y, n, axis=-1)[..., n//2:]``."""
+    m = n or 2 * (y.shape[-1] - 1)
+    return torch.fft.irfft(y, n=m, dim=-1)[..., m // 2:]
 
 
 def rfft_split_hc(x: torch.Tensor, n: Optional[int] = None):
@@ -122,3 +207,20 @@ def rfft_split_hc_partB(ar: torch.Tensor, ai: torch.Tensor, n: int):
     """Second half of ``rfft_split_hc_partA``: partA finished the
     transform, so its planes pass through."""
     return ar, ai
+
+
+def czeros(shape, dtype=torch.complex64, *, device) -> torch.Tensor:
+    """Complex zeros on ``device``."""
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (any device, complex included) or array as a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def from_numpy_complex(x, *, device) -> torch.Tensor:
+    """A host array, complex or real, as a tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)

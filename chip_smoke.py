@@ -139,7 +139,26 @@ Phases (any failure exits non-zero before the last line is printed):
 20. the render CLI at its default ``--dtype`` (float64: ``extended``)
     with ``--out-format float64``, >= 240 dB, and with ``--auto-attenuate``
     on a +12 dB impulse: output peak <= 1 and the level applied equal to
-    the port's probe run on the card.
+    the port's probe run on the card;
+21. session M (after session L, a path of its own): (a)
+    ``engine_mode="nonuniform_split"`` at N = 64, where the split
+    schedule's bands do not fit and the session builds ``nonuniform``
+    (int24 tail; head 16 x 64, tail 254 x 512), 64 ch x 131072 taps:
+    about 2270 blocks in uneven chunks, 128-block calls and 32 M-cycles
+    one block a call; worst channel >= 110 dB; wall ms/block in bulk and
+    by phase in single-block calls against the 1.451 ms budget of a
+    64-frame block at 44.1 kHz, launches a block, device ms/block (CUDA
+    events over calls queued behind a spin kernel), peak memory; (b)
+    ``ops/fft``'s ``fft``/``ifft`` along axis 0 at process_batch's [286,
+    64, 1025] (padded to 512), ``cfft_split`` with ``cols``,
+    ``fft0_split`` with ``rows``, ``ifft0_slice``, ``irfft_split_tail``
+    and ``irfft_tail`` at [64, 2048] and [64, 16384], complex64 and
+    complex128 against numpy float64 (<= 1e-5 and 1e-12 of the peak),
+    device us a call; (c) ``BlockTimer.measure(state)`` waits for the card
+    (p50 not below the CUDA-event span of the same calls) and
+    ``utils.profiling.trace`` writes a trace; (d) ``step_nu(phase=)`` at 0
+    and R - 1 equal to the counter's phase (<= 1e-6), each phase's
+    CUDA-event ms a call.
 
 Phase 3 also checks K4 at h = 1024, 8192 and 16384 on 64 and 129 rows of
 planes with h and h + 128 lanes (timed at [64, 8192], logged at [64,
@@ -151,7 +170,8 @@ cooperative grid and split plans logged; K13's ring bit for bit), and
 K2 also at session J's mid and far stages, [16, 128, 8192] and [8, 128,
 65536] (times under "also"), K1 and K2 at session K's shard shapes at
 ring position 0, [4, 128, 1024], [4, 128, 8192] and [2, 128, 65536]
-(times under "also"), the FFT family K14-K18 timed at session G's
+(times under "also"), K1 and K3 at session M's head [16, 128, 128] and
+int24 tail [254, 128, 512] (times under "also"), the FFT family K14-K18 timed at session G's
 shape [64, 2048] (h = 1024)
 beside ``torch.fft`` and at [64, 16384] (h = 8192): K15 and K18 at
 h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
@@ -161,13 +181,14 @@ h = 512, 1024, 8192 and 16384 on 64 and 129 rows, K14 in every mode
 planes (h + 128 lanes) on 64 rows, K17 also timed at [64, 1024] (h =
 512).
 
-The launch counters are zeroed just before each path (sessions A-K, the
-two renders, the checkpoint; session L's in each worker process) and read
+The launch counters are zeroed just before each path (sessions A-K and
+M, the two renders, the checkpoint; session L's in each worker process) and read
 just after it; each path must have launched its kernels. The last two lines are a JSON object describing the card
 (``nvidia-smi``'s name and power limit) and the kernels (K14-K18 with
 their times at the tail shape as well, under "also": K14 at [64, 8192]
 forward, the others at [64, 16384]; K2 at session J's two shapes and
-session K's two shard shapes; K1 at session K's head shard), and the
+session K's two shard shapes; K1 at session K's head shard and session
+M's head; K3 at session M's tail), and the
 ``{"ok": true, ...}`` result. The line before them holds the card and
 session E's codec numbers.
 """
@@ -189,6 +210,10 @@ C = 64            # channels
 N = 1024          # block length
 TAPS = 131072     # impulse length: P = 128 partitions
 TAPS3 = 655360    # session J: P = 640, where auto takes the three-stage engine
+N_M = 64          # session M: the block where nonuniform_split runs nonuniform
+# session M's geometry at TAPS: head partitions, tail partitions, head and
+# tail lanes (Hp = N_M rounded up to 128, and M = 8 N_M)
+M_GEOM = (16, (TAPS - 16 * N_M) // (8 * N_M), 128, 8 * N_M)
 MIN_SNR_DB = 110.0
 # the extended (float64) engine's gate: a float64 overlap-save reads about
 # 306 dB against scipy at small sizes; float32 engines read about 130
@@ -537,6 +562,30 @@ def check_kernels():
         also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
                      "library_ms": None, "bound_ms": bound, "bound_by": by})
         del ring, coeff
+    # K1 and K3 at session M's shapes (N = 64, M = 512): the head of the
+    # smallest lane count K1 takes, [16, 128, 128], and the int24 tail of
+    # 254 partitions, [254, 128, 512], one tile of all its lanes
+    mp_h, mp_t, mh_h, mh_t = M_GEOM
+    ring, coeff = rn(mp_h, 2 * C, mh_h), rn(mp_h, 2 * C, mh_h)
+    args = ("mac_hc", f"float32 [{mp_h}, {2 * C}, {mh_h}], session M head",
+            lambda: K.mac_hc(ring, coeff, 5),
+            lambda: K.mac_hc_plain(ring, coeff, 5))
+    run(*args)
+    ms, bound, by = _log_times(*args, None,
+                               mac_cost(ring, coeff, mp_h, mh_h, mh_h))
+    k1_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                    "library_ms": None, "bound_ms": bound, "bound_by": by})
+    ring = K.quantize_planes(rn(mp_t, 2 * C, mh_t), 24)
+    coeff = K.quantize_planes(rn(mp_t, 2 * C, mh_t), 24)
+    args = ("mac_hc_tiled_int", f"int24 [{mp_t}, {2 * C}, {mh_t}], session "
+            "M tail", lambda: K.mac_hc_tiled_int(ring, coeff, 77, tile=mh_t),
+            lambda: K.mac_reference_hc_int(ring, coeff, 77))
+    run(*args)
+    ms, bound, by = _log_times(*args, None, mac_cost(
+        tuple(ring), tuple(coeff), mp_t, mh_t, mh_t))
+    k3_also = [{"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                "library_ms": None, "bound_ms": bound, "bound_by": by}]
+    del ring, coeff
     out["mac_hc"]["also"] = k1_also
     out["mac_hc_tiled"]["also"] = k2_also
     for bits in (24, 16):
@@ -548,6 +597,7 @@ def check_kernels():
                 lambda: K.mac_reference_hc_int(ring, coeff, 9),
                 mac_cost(tuple(ring), tuple(coeff), pt, ht, ht)
                 if cs == C and bits == 24 else None)
+    out["mac_hc_tiled_int"]["also"] = k3_also
     # K4: timed at the tail-fire shape [64, 8192] (and logged at [64,
     # 1024]); checked at h = 1024, 8192 and 16384, on 64 and 129 rows, on
     # planes with h and h + 128 lanes
@@ -1104,13 +1154,13 @@ def _write_wav(name, h):
     return path
 
 
-def _config(path, tail_store="auto", mode="auto", dtype="float32"):
+def _config(path, tail_store="auto", mode="auto", dtype="float32", block=N):
     from bfir_tpu_torch.core.spec import (ChainSpec, EngineConfig,
                                           FilterSpec, ImpulseFileSpec)
 
     files = (ImpulseFileSpec(enabled=True, filename=path), ImpulseFileSpec(),
              ImpulseFileSpec())
-    return EngineConfig(filter=FilterSpec(N, dtype=dtype),
+    return EngineConfig(filter=FilterSpec(block, dtype=dtype),
                         chain=ChainSpec(files=files), nu_tail_store=tail_store,
                         engine_mode=mode)
 
@@ -3228,6 +3278,337 @@ def checkpoint_resume():
         raise SystemExit("chip_smoke: checkpoint resume differs")
 
 
+M_BUDGET_MS = N_M / 44.1  # one 64-frame block at 44.1 kHz: 1.451 ms
+M_REL_F32, M_REL_F64 = 1e-5, 1e-12  # session M (b): error over the peak
+M_PHASE_TOL = 1e-6  # session M (d): pinned against the counter's phase
+
+
+def _queued_ms(fn, reps=8, what="call"):
+    """Device ms per call of fn from CUDA events, with the host's launch
+    latency out of the span: a spin kernel holds the stream while the host
+    queues ``reps`` calls between two events. The spin must outlast the
+    queueing (the first event still pending when the last call is queued).
+    A full launch queue (about a thousand kernels and copies) blocks the
+    host until the spin ends, so ``reps`` x fn's launches stay below it;
+    where the spin ended first, the calls are queued again behind a spin 4
+    x longer, ``TRIES`` times at most, and then the time is not measured
+    (None). fn must not wait on the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = LEAD_CYCLES
+    for _ in range(TRIES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        early = a.query()
+        b.synchronize()
+        if not early:
+            return a.elapsed_time(b) / reps
+        log(f"{what}: the spin ended before {reps} calls were queued; "
+            "queueing again behind a longer spin")
+        cycles *= 4
+    log(f"{what}: device time not measured (the spin never outlasted "
+        "the queueing)")
+    return None
+
+
+def _ms(v, digits=4):
+    return "not measured" if v is None else f"{v:.{digits}f}"
+
+
+def _m_stepper(sp, blocks):
+    """A fresh two-stage state on sp's geometry and coefficients, and a
+    function that steps it one block of ``blocks`` (device, [B, C, N],
+    cycled) per call through ``step_nu``; it returns the state holder."""
+    from bfir_tpu_torch.core import nonuniform as NU
+
+    held = {"st": NU.init_nu_state(sp._nuspec, C, device=DEVICE), "i": 0}
+
+    def step(phase=None):
+        blk = blocks[held["i"] % blocks.shape[0]]
+        held["st"], held["y"] = NU.step_nu(held["st"], sp._coeffs, blk,
+                                           phase)
+        held["i"] += 1
+
+    return held, step
+
+
+def session_m(cache):
+    """``engine_mode="nonuniform_split"`` at N = 64 (the block where the
+    split schedule's bands do not fit, so the session builds ``nonuniform``)
+    at the flagship width, then the reference API the port gained with it:
+    (a) streaming, (b) the ``ops/fft`` transforms, (c) ``BlockTimer`` and
+    ``trace``, (d) ``step_nu(phase=)``."""
+    m = session_m_stream(cache)
+    session_m_fft()
+    session_m_profiling(m)
+    session_m_phases(m)
+
+
+def session_m_stream(cache):
+    """(a) 64 ch x 131072 taps at N = 64, float32: the engine and geometry
+    gated, about 2270 blocks streamed (uneven chunks, 128-block calls, then
+    32 M-cycles one block a call), worst channel >= 110 dB; wall ms/block in
+    bulk and single-block calls by phase against the real-time budget,
+    launches a block, device ms/block (CUDA events), peak memory."""
+    import torch
+
+    from bfir_tpu_torch.engine.session import StreamProcessor
+
+    what = "session M (a)"
+    h = _impulse(50, C)
+    cfg = _config(_write_wav("m.wav", h), mode="nonuniform_split",
+                  block=N_M)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sp = StreamProcessor(cfg, cache, device=DEVICE)
+    rng = np.random.default_rng(51)
+    x = rng.standard_normal((C, 1500 * N_M + 29)).astype(np.float32)
+    t0 = time.perf_counter()
+    y = _stream(sp, x, [1000, 37, 20000, 4567, 50000])
+    log(f"{what}: first process() calls incl. build and self-check "
+        f"{time.perf_counter() - t0:.1f} s, {y.shape[1] // N_M} blocks")
+    nu = sp._nuspec
+    geom = ((nu.p_head, nu.block_length), (nu.p_tail, nu.m), nu.tail_store)
+    want = ((M_GEOM[0], N_M), (M_GEOM[1], M_GEOM[3]), "int24")
+    if sp._impl != "nonuniform" or geom != want:
+        raise SystemExit(f"chip_smoke: {what} engine {sp._impl!r} {nu}")
+    log(f"{what}: engine_mode nonuniform_split at N = {N_M} built "
+        f"{sp._impl}, {nu}")
+    more = rng.standard_normal((4, C, 128 * N_M)).astype(np.float32)
+    times, outs = [], []
+    for chunk in more[:3]:
+        t1 = time.perf_counter()
+        outs.append(sp.process(chunk))
+        times.append((time.perf_counter() - t1) * 1e3 / 128)
+    bulk = float(np.median(times))
+    counts = {}
+    outs.append(_device_busy(lambda: sp.process(more[3]), what, counts))
+    # one block a call, from phase 0 on, each wall classed by its phase
+    ratio = nu.ratio
+    pend = sp._pending.shape[1]
+    k = (-sp._state.head.blockcounter) % ratio or (ratio if pend else 0)
+    lead = rng.standard_normal((C, k * N_M - pend)).astype(np.float32)
+    outs.append(sp.process(lead))
+    if sp._nu_phase() != 0 or sp._pending.shape[1]:
+        raise SystemExit(f"chip_smoke: {what} not at a cycle boundary")
+    singles = rng.standard_normal((32 * ratio, C, N_M)).astype(np.float32)
+    per_phase = [[] for _ in range(ratio)]
+    launched = {name: f.launches for name, f in _kernels().items()}
+    for blk in singles:
+        phase = sp._nu_phase()
+        t1 = time.perf_counter()
+        outs.append(sp.process(blk))
+        per_phase[phase].append((time.perf_counter() - t1) * 1e3)
+    per_block = {name: (f.launches - launched[name]) / len(singles)
+                 for name, f in _kernels().items()
+                 if f.launches > launched[name]}
+    med = [float(np.median(v)) for v in per_phase]
+    mean = float(np.mean(med))
+    stream = np.concatenate(
+        [x, *more, lead, singles.transpose(1, 0, 2).reshape(C, -1)], axis=1)
+    ys = np.concatenate([y, *outs], axis=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{what}: process() wall {bulk:.4f} ms/block in 128-block calls "
+        f"(median of 3), {_device_line(counts, 128)}; single-block calls by "
+        f"phase (median of 32): " + ", ".join(f"{v:.4f}" for v in med)
+        + f" ms, worst {max(med):.4f} = {max(med) / mean:.2f} x the mean "
+        f"{mean:.4f}; budget {M_BUDGET_MS:.4f} ms a {N_M}-frame block at "
+        f"44.1 kHz: bulk {bulk / M_BUDGET_MS:.2f} x, worst phase "
+        f"{max(med) / M_BUDGET_MS:.2f} x; kernel launches a block "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_block.items())
+        + f"; peak device memory {peak / 2 ** 20:.1f} MiB above the "
+        f"{base / 2 ** 20:.1f} MiB before the session")
+    dev_blocks = torch.from_numpy(singles[:64]).to(DEVICE)
+    _, step = _m_stepper(sp, dev_blocks)
+    dev_ms = _queued_ms(step, reps=2 * ratio, what="step_nu")
+    log(f"{what}: step_nu device {_ms(dev_ms)} ms/block (CUDA events over "
+        f"{2 * ratio} queued blocks, 2 tail fires)")
+    _snr_gate(_worst_snr_db(ys, stream[:, :ys.shape[1]], h), what)
+    log(f"{what}: {ys.shape[1] // N_M} blocks streamed, "
+        f"{ys.shape[1] / TAPS:.2f} filter lengths")
+    if ys.shape[1] // N_M < 2200:
+        raise SystemExit(f"chip_smoke: {what} streamed too few blocks")
+    return sp
+
+
+def session_m_fft():
+    """(b) ``ops/fft``'s generic and leading-axis transforms on the card at
+    the engines' shapes, complex64 and complex128, each against numpy's
+    float64 transform of the same input (error over the peak <= 1e-5 and
+    1e-12), with each call's device us (CUDA events, queued calls)."""
+    import torch
+
+    from bfir_tpu_torch.core import convolver as cv
+    from bfir_tpu_torch.ops import fft as F
+
+    rng = np.random.default_rng(52)
+    p, b = TAPS // N, 32
+    rows, ln = b + 2 * (p - 1), cv.batch_fft_len(b, p)  # 286 -> 512
+
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    big = cplx(rows, C, N + 1)       # process_batch's [L, C, F]
+    full = cplx(ln, C, N + 1)        # its padded block-axis spectrum
+    wide = cplx(C, 2 * N)
+    half = {n: np.fft.rfft(rng.standard_normal((C, n)), axis=-1)
+            for n in (2 * N, 16 * N)}
+    sel = (p - 1, b)  # process_batch keeps rows [P - 1, P - 1 + B)
+    cases = [
+        (f"fft axis 0 {list(big.shape)} n {ln}", (big,),
+         lambda y: F.fft(y, n=ln, axis=0),
+         lambda: np.fft.fft(big, n=ln, axis=0)),
+        (f"ifft axis 0 {list(full.shape)}", (full,),
+         lambda y: F.ifft(y, axis=0), lambda: np.fft.ifft(full, axis=0)),
+        (f"cfft_split {list(wide.shape)} cols (1000, 48)",
+         (wide.real, wide.imag),
+         lambda r, i: torch.complex(*F.cfft_split(r, i, cols=(1000, 48))),
+         lambda: np.fft.fft(wide, axis=-1)[:, 1000:1048]),
+        (f"fft0_split {list(big.shape)} n {ln} inverse rows {sel}",
+         (big.real, big.imag),
+         lambda r, i: torch.complex(*F.fft0_split(r, i, n=ln, inverse=True,
+                                                  rows=sel)),
+         lambda: np.fft.ifft(big, n=ln, axis=0)[sel[0]:sum(sel)]),
+        (f"ifft0_slice {list(full.shape)} {sel}", (full,),
+         lambda y: F.ifft0_slice(y, *sel),
+         lambda: np.fft.ifft(full, axis=0)[sel[0]:sum(sel)]),
+    ]
+    for n, y in half.items():
+        cases += [
+            (f"irfft_split_tail {list(y.shape)} n {n}", (y.real, y.imag),
+             lambda r, i, n=n: F.irfft_split_tail(r, i, n=n),
+             lambda y=y, n=n: np.fft.irfft(y, n=n, axis=-1)[:, n // 2:]),
+            (f"irfft_tail {list(y.shape)} n {n}", (y,),
+             lambda y, n=n: F.irfft_tail(y, n=n),
+             lambda y=y, n=n: np.fft.irfft(y, n=n, axis=-1)[:, n // 2:])]
+    for name, args, fn, ref in cases:
+        want = ref()
+        peak = float(np.abs(want).max())
+        for tol, cdt, rdt in ((M_REL_F32, np.complex64, np.float32),
+                              (M_REL_F64, np.complex128, np.float64)):
+            dev = [F.from_numpy_complex(
+                a.astype(cdt if np.iscomplexobj(a) else rdt), device=DEVICE)
+                for a in args]
+            got = F.to_numpy(fn(*dev))
+            if got.shape != want.shape:
+                raise SystemExit(f"chip_smoke: session M (b) {name} shape "
+                                 f"{got.shape} != {want.shape}")
+            rel = float(np.abs(got - want).max()) / peak
+            ms = _queued_ms(lambda: fn(*dev), what=name)
+            log(f"session M (b): {name} {np.dtype(cdt).name}: error "
+                f"{rel:.2e} of the peak (bound {tol:.0e}), device "
+                f"{_ms(None if ms is None else ms * 1e3, 2)} us a call "
+                "(CUDA events, 8 queued calls)")
+            if not rel <= tol:
+                raise SystemExit(f"chip_smoke: session M (b) {name} "
+                                 f"{np.dtype(cdt).name} error {rel:.2e}")
+            del dev
+
+
+def session_m_profiling(sp):
+    """(c) ``utils.profiling`` on the card: ``BlockTimer.measure(state)``
+    around 64 ``step_nu`` calls waits for the device (its p50 is not below
+    the CUDA-event span of the same calls; ``measure()`` without a result
+    logged beside it), and ``trace`` around 8 steps writes a trace file
+    (its CUDA kernel events counted, not gated: the profiler loses
+    events)."""
+    import torch
+
+    from bfir_tpu_torch.utils import profiling as P
+
+    rng = np.random.default_rng(53)
+    blocks = torch.from_numpy(rng.standard_normal(
+        (64, C, N_M)).astype(np.float32)).to(DEVICE)
+    held, step = _m_stepper(sp, blocks)
+    step()
+    torch.cuda.synchronize()
+    waits, bare, spans = P.BlockTimer(), P.BlockTimer(), []
+    for _ in range(64):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with waits.measure(held["st"]):
+            a.record()
+            step()
+            b.record()
+        spans.append(a.elapsed_time(b))
+    for _ in range(64):
+        with bare.measure():
+            step()
+    torch.cuda.synchronize()
+    p_wait, p_bare = waits.percentiles()[50] * 1e3, bare.percentiles()[50] * 1e3
+    span = float(np.median(spans))
+    log(f"session M (c): BlockTimer.measure(state) around step_nu p50 "
+        f"{p_wait:.4f} ms, CUDA-event span of the same calls {span:.4f} ms "
+        f"(median), measure() without a result p50 {p_bare:.4f} ms "
+        f"(64 calls each)")
+    if not p_wait >= span:
+        raise SystemExit("chip_smoke: session M (c) BlockTimer.measure(result)"
+                         " stopped before the device")
+    log_dir = os.path.join(WORK, "trace")
+    with P.trace(log_dir) as prof:
+        for _ in range(8):
+            step()
+        torch.cuda.synchronize()
+    files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+    if len(files) != 1 or not os.path.getsize(files[0]):
+        raise SystemExit(f"chip_smoke: session M (c) trace wrote {files}")
+    from torch.autograd import DeviceType
+
+    n_dev = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    log(f"session M (c): trace of 8 step_nu calls: "
+        f"{os.path.basename(files[0])}, {os.path.getsize(files[0])} bytes, "
+        f"{n_dev} CUDA kernel events (not gated)")
+
+
+def session_m_phases(sp):
+    """(d) ``step_nu(phase=)`` on the card: two states stepped alike, one
+    pinned at phase 0 and later R - 1, the other on its counter, give the
+    same block (<= 1e-6 of the peak); then each pinned phase's CUDA-event
+    ms a call (single calls, and 8 queued calls: device only)."""
+    import torch
+
+    from bfir_tpu_torch.core import nonuniform as NU
+
+    rng = np.random.default_rng(54)
+    ratio = sp._nuspec.ratio
+    blocks = torch.from_numpy(rng.standard_normal(
+        (3 * ratio, C, N_M)).astype(np.float32)).to(DEVICE)
+    a = NU.init_nu_state(sp._nuspec, C, device=DEVICE)
+    b = NU.init_nu_state(sp._nuspec, C, device=DEVICE)
+    for i in range(3 * ratio):
+        phase = i % ratio
+        pin = phase if phase in (0, ratio - 1) and i >= 2 * ratio else None
+        a, ya = NU.step_nu(a, sp._coeffs, blocks[i])
+        b, yb = NU.step_nu(b, sp._coeffs, blocks[i], phase=pin)
+        if pin is None:
+            continue
+        rel = float((ya - yb).abs().max()) / float(ya.abs().max())
+        log(f"session M (d): step_nu(phase={pin}) against the counter's "
+            f"phase {phase}: max difference {rel:.2e} of the peak")
+        if not rel <= M_PHASE_TOL:
+            raise SystemExit(f"chip_smoke: session M (d) phase {pin} "
+                             f"differs: {rel:.2e}")
+    single, queued = [], []
+    for k in range(ratio):
+        _, step = _m_stepper(sp, blocks)
+        single.append(_event_ms(lambda: step(k)))
+        queued.append(_queued_ms(lambda: step(k), what=f"step_nu phase {k}"))
+    log("session M (d): step_nu(phase=k) CUDA-event ms a call, k = 0.."
+        f"{ratio - 1}: single calls (median of 20) "
+        + ", ".join(f"{v:.4f}" for v in single) + "; device, 8 queued "
+        "calls: " + ", ".join(_ms(v) for v in queued)
+        + f"; budget {M_BUDGET_MS:.4f} ms")
+
+
 def main():
     preflight()
     from bfir_tpu_torch.engine.cache import ArtifactCache
@@ -3279,6 +3660,9 @@ def main():
             total[name] += n
     # session L's paths run in its worker processes, each counting its own
     for name, n in session_l().items():
+        total[name] += n
+    for name, n in run_path("session M", ("mac_hc", "mac_hc_tiled_int"),
+                            session_m, cache).items():
         total[name] += n
     for name, n in total.items():
         if n == 0:

@@ -163,14 +163,15 @@ def _write_impulse(tmp_path, name, taps, seed):
     return path, h.astype(np.float64)
 
 
-def _configs(path, mode="nonuniform_split", **kw):
+def _configs(path, mode="nonuniform_split", block_length=128,
+             dtype="float32", **kw):
     """The reference's and the port's EngineConfig from the same kwargs."""
     out = []
     for Eng, Chain, Filt, Imp in (
             (JEngineConfig, JChainSpec, JFilterSpec, JImpulseFileSpec),
             (EngineConfig, ChainSpec, FilterSpec, ImpulseFileSpec)):
         out.append(Eng(
-            filter=Filt(block_length=128, dtype="float32"),
+            filter=Filt(block_length=block_length, dtype=dtype),
             chain=Chain(files=(Imp(enabled=True, filename=path), Imp(),
                                Imp())),
             engine_mode=mode, **kw))
@@ -234,3 +235,76 @@ def test_session_nonuniform_split_guards(tmp_path):
         NU.init_nu_split_state(dataclasses.replace(sp._nuspec,
                                                    head_store="int24"), 2,
                                device="cpu")
+
+
+def _both_sessions(tmp_path, path, n, dtype, chunks_of):
+    """The reference's and the port's session on one config, fed the same
+    seeded input in uneven chunks. Returns (reference, port, y_ref,
+    y_port, x)."""
+    jcfg, tcfg = _configs(path, block_length=n, dtype=dtype)
+    jsp = JStreamProcessor(jcfg, JArtifactCache(str(tmp_path / "jax")))
+    tsp = StreamProcessor(tcfg, ArtifactCache(str(tmp_path / "torch")),
+                          device="cpu")
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, chunks_of[-1])).astype(dtype)
+    bounds = list(zip([0, *chunks_of[:-1]], chunks_of))
+    yj = np.concatenate([jsp.process(x[:, a:b]) for a, b in bounds], 1)
+    yt = np.concatenate([tsp.process(x[:, a:b]) for a, b in bounds], 1)
+    return jsp, tsp, yj, yt, x
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_split_small_block_runs_two_stage(tmp_path, n):
+    # N <= 64: the tail planes (Hp = 8N rounded up to 128) do not split into
+    # 8 bands of 128 lanes; both packages stream on the two-stage engine
+    path, h = _write_impulse(tmp_path, "h.wav", 40 * n + 7, 60 + n)
+    t = 130 * n + 11
+    jsp, tsp, yj, yt, x = _both_sessions(
+        tmp_path, path, n, "float32", [3 * n + 5, 17 * n, 60 * n + 1, t])
+    assert tsp._impl == jsp._impl == "nonuniform"
+    assert tsp._nuspec.block_length == n and tsp._nuspec.p_tail >= 2
+    _close(yt, yj)
+    _close(yt, _scipy(x, h)[:, :yt.shape[1]])
+
+
+def test_split_small_block_float64(tmp_path):
+    path, h = _write_impulse(tmp_path, "h.wav", 40 * 64 + 7, 70)
+    jsp, tsp, yj, yt, x = _both_sessions(
+        tmp_path, path, 64, "float64", [200, 1000, 64 * 64 + 9])
+    assert tsp._impl == jsp._impl == "nonuniform"
+    assert yt.dtype == np.float64
+    _close(yt, yj, rel=1e-9)
+    _close(yt, _scipy(x, h)[:, :yt.shape[1]], rel=1e-9)
+
+
+def test_split_small_block_head_covers(tmp_path):
+    # 900 taps at N = 64: the head (16 x 64) covers the filter, so both
+    # packages' chains end on the uniform hc engine
+    path, h = _write_impulse(tmp_path, "h.wav", 900, 71)
+    jsp, tsp, yj, yt, x = _both_sessions(
+        tmp_path, path, 64, "float32", [100, 1300, 40 * 64 + 3])
+    assert tsp._impl == jsp._impl == "hc"
+    _close(yt, yj)
+    _close(yt, _scipy(x, h)[:, :yt.shape[1]])
+
+
+def test_split_small_block_render_cli(tmp_path, monkeypatch):
+    from bfir_tpu.cli import render as JCLI
+    from bfir_tpu_torch.cli import render as CLI
+
+    path, h = _write_impulse(tmp_path, "ir.wav", 40 * 64 + 7, 72)
+    rng = np.random.default_rng(73)
+    x = (0.3 * rng.standard_normal((6000, 2))).astype(np.float32)
+    inp = str(tmp_path / "in.wav")
+    wavio.write(inp, x, 44100, subtype="float32")
+    monkeypatch.setenv("HOME", str(tmp_path))  # the sessions' default cache
+    flags = ["--impulse", path, "--dtype", "float32", "--block", "64",
+             "--engine-mode", "nonuniform_split", "--cpu"]
+    out_j, out_t = str(tmp_path / "j.wav"), str(tmp_path / "t.wav")
+    assert JCLI.main([inp, out_j, *flags]) == 0
+    assert CLI.main([inp, out_t, *flags]) == 0
+    yj, _ = wavio.read(out_j)
+    yt, _ = wavio.read(out_t)
+    assert yt.shape == yj.shape == x.shape
+    _close(yt, yj)
+    _close(yt.T, _scipy(x.T, h)[:, :x.shape[0]])

@@ -1,7 +1,17 @@
 // Device helpers shared by the ring-MAC kernels (csrc/mac_hc.cu,
 // csrc/mac_variants.cu, csrc/mac_tail_hc.cu): a read-only 16-byte load,
 // the complex multiply-accumulate of four neighbouring lanes on split
-// re/im planes, and the partition loop of one thread over those lanes.
+// re/im planes, and the partition loops of one thread over those lanes:
+// ring_mac4 over all P partitions (K12, and K1-K3, K5, K6, K8 unsliced)
+// and ring_mac4_range over one contiguous run of them (a partition slice
+// of K1-K3, K5, K6, K8).
+//
+// Sum order: both loops add partition p's product into float32 sums that
+// start at zero, in increasing p, one partition at a time, whatever their
+// unroll (the unroll only issues loads early). A kernel that cuts the
+// partitions into runs adds the runs' sums in run order itself, so every
+// output is the same sequence of float32 operations on every launch of
+// the same shape: no atomics, no order that depends on timing.
 
 #pragma once
 
@@ -59,6 +69,37 @@ __device__ __forceinline__ void ring_mac4(float4& ar, float4& ai, int P,
       cmac4(ar, ai, cr[u], ci[u], rr[u], ri[u], lane0);
   }
   for (; p < P; ++p) {
+    int slot = pos - p;
+    if (slot < 0) slot += P;
+    float4 rr, ri, cr, ci;
+    load(slot, p, rr, ri, cr, ci);
+    cmac4(ar, ai, cr, ci, rr, ri, lane0);
+  }
+}
+
+// Partitions [p0, p1) of the ring MAC of one thread's four lanes, added
+// into (ar, ai) in partition order (0 <= p0 <= p1 <= P): partition p
+// multiplies ring slot (pos - p) mod P, as in ring_mac4, and kUnroll
+// partitions' loads issue before their math. The caller zeroes (ar, ai).
+template <int kUnroll = 1, class Load>
+__device__ __forceinline__ void ring_mac4_range(float4& ar, float4& ai,
+                                                int p0, int p1, int P,
+                                                int pos, bool lane0,
+                                                Load load) {
+  int p = p0;
+  for (; p + kUnroll <= p1; p += kUnroll) {
+    float4 rr[kUnroll], ri[kUnroll], cr[kUnroll], ci[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      int slot = pos - p - u;
+      if (slot < 0) slot += P;
+      load(slot, p + u, rr[u], ri[u], cr[u], ci[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      cmac4(ar, ai, cr[u], ci[u], rr[u], ri[u], lane0);
+  }
+  for (; p < p1; ++p) {
     int slot = pos - p;
     if (slot < 0) slot += P;
     float4 rr, ri, cr, ci;

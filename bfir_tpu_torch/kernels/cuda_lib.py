@@ -36,9 +36,9 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     # r_a, r_lo, r_scale, r_kind, c_a, c_lo, c_scale, c_kind, yr, yi,
-    # P, C, Cs, hp, band_start, band_len, pos, stream
+    # P, C, Cs, hp, band_start, band_len, pos, slices, unroll, width, stream
     "bfir_mac_hc": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # hr, hi, in_stride, out, tw, rows, h, stream
     "bfir_irfft_hc_tail": [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _P],
     # hist, h_kind, coeff, c_kind, yr, yi, P, B, C, Cs, hp, variant,
@@ -47,8 +47,9 @@ _SIGNATURES = {
     # variant, h_kind, c_kind, per_sm (out), sms (out)
     "bfir_corr_mac_occupancy": [_I, _I, _I, ctypes.POINTER(_I),
                                 ctypes.POINTER(_I)],
-    # ring, coeff, yr, yi, P, C, fp, lanes, pos, stream
-    "bfir_mac_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ring, coeff, yr, yi, P, C, fp, lanes, pos, slices, unroll, width,
+    # stream
+    "bfir_mac_packed": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     # ring2, coeff_rk, yr, yi, P, C, fp, lanes, pos, k, stream
     "bfir_mac_chunked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # ring_re, ring_im, coeff_re, coeff_im, yr, yi, P, C, fp, lanes, pos,

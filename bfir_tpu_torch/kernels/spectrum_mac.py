@@ -256,6 +256,65 @@ def _int_plane(ip: IntPlanes, name: str, device):
             ip.hi.shape)
 
 
+# csrc/mac_hc.cu's kThreads (quads a block walks), kMaxSlices, kMaxBlock
+# (threads a block) and kSliceUnroll
+_MAC_THREADS, _MAC_SLICES, _MAC_BLOCK, _MAC_UNROLL = 64, 16, 512, 2
+# Threads an SM that fill the card for the MAC (a quarter of its 2048: the
+# loads in flight that reach HBM's bandwidth); with a chain of at most
+# _MAC_SHORT_CHAIN partitions, _MAC_FILL_SHORT an SM do (see mac_hc_plan)
+_MAC_FILL, _MAC_FILL_SHORT, _MAC_SHORT_CHAIN = 512, 64, 16
+
+
+class MacPlan(NamedTuple):
+    """A launch of csrc/mac_hc.cu: ``slices`` partition slices (S), the
+    ``unroll`` of each slice's loop, blocks of ``width`` x S threads on a
+    ``grid`` of (quad blocks, channels)."""
+
+    slices: int
+    unroll: int
+    width: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def mac_hc_plan(p: int, c: int, band_len: int, sms: int) -> MacPlan:
+    """The plan of a ring MAC over ``p`` partitions, ``c`` channels and
+    ``band_len`` lanes (4 to a thread) on a card of ``sms`` SMs.
+
+    One thread a quad a channel (S = 1: the partitions summed in one
+    loop) where that fills the card, ``_MAC_FILL`` threads an SM, or where
+    each thread's chain is at most ``_MAC_SHORT_CHAIN`` partitions and
+    the quads give ``_MAC_FILL_SHORT`` threads an SM: the flagship's K1
+    [16, 128, 1024], K2/K3 [14, 128, 8192] and K5/K6 bands keep the
+    schedule and sum order they had at their bound. Elsewhere the
+    partitions are cut into the fewest slices that fill the card, at most
+    ``_MAC_SLICES`` and P; a block that would pass ``_MAC_BLOCK`` threads
+    walks 32 quads instead of 64. Sliced threads keep ``_MAC_UNROLL``
+    partitions' loads in flight."""
+    quads = -(-band_len // 4)
+    threads = c * quads
+    fill = sms * _MAC_FILL
+    if threads >= fill or (p <= _MAC_SHORT_CHAIN
+                           and threads >= sms * _MAC_FILL_SHORT):
+        slices = 1
+    else:
+        slices = min(_MAC_SLICES, p, -(-fill // threads))
+    width = (32 if quads <= 32 or slices * _MAC_THREADS > _MAC_BLOCK
+             else _MAC_THREADS)
+    return MacPlan(slices, 1 if slices == 1 else _MAC_UNROLL, width,
+                   (-(-quads // width), c))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _mac_plan_for(p: int, c: int, band_len: int, device) -> MacPlan:
+    """``mac_hc_plan`` on ``device``'s SM count."""
+    return mac_hc_plan(p, c, band_len, _sm_count(device))
+
+
 def _mac_out(c: int, lanes: int, device):
     yr = torch.empty((c, lanes), dtype=torch.float32, device=device)
     return yr, torch.empty_like(yr)
@@ -275,12 +334,13 @@ def _launch_mac(r, g, pos: int, device, band=None
     if hp % 128:
         raise ValueError(f"Hp {hp} must be a multiple of 128")
     b0, bl = band or (0, hp)
+    plan = _mac_plan_for(p, c, bl, device)
     yr, yi = _mac_out(c, bl, device)
     lib = cuda_lib.load()
     with torch.cuda.device(device):
         err = lib.bfir_mac_hc(r_a, r_lo, r_s, r_kind, g_a, g_lo, g_s, g_kind,
                               yr.data_ptr(), yi.data_ptr(), p, c, cs, hp, b0,
-                              bl, pos % p, cuda_lib.stream_of(yr))
+                              bl, pos % p, *plan[:3], cuda_lib.stream_of(yr))
     cuda_lib.check(err, "mac_hc")
     return yr, yi
 
@@ -400,12 +460,13 @@ def mac_packed(ring_pk: torch.Tensor, coeff_pk: torch.Tensor, pos: int,
     if fp % 4:
         raise ValueError(f"Fp {fp} must be a multiple of 4")
     c, nb = c2 // 2, _packed_lanes(fp, n_freq)
+    plan = _mac_plan_for(p, c, nb, dev)
     yr, yi = _mac_out(c, nb, dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
         err = lib.bfir_mac_packed(ring_pk.data_ptr(), coeff_pk.data_ptr(),
                                   yr.data_ptr(), yi.data_ptr(), p, c, fp, nb,
-                                  pos % p, cuda_lib.stream_of(yr))
+                                  pos % p, *plan[:3], cuda_lib.stream_of(yr))
     cuda_lib.check(err, "mac_packed")
     mac_packed.launches += 1
     return yr, yi

@@ -509,11 +509,40 @@ def check_kernels():
 
     def mac_cost(ring, coeff, p, lanes, width):
         """Bytes and flops of a ring MAC over ``lanes`` of ``width``: the
-        planes' share of those lanes, two float32 outputs, 8 flops per
-        (partition, channel, lane)."""
+        planes' share of those lanes (of block-scaled integer planes, the
+        values' share and 4 bytes of scale a row: the kernel reads column
+        0 of each row's [.., 128] scale plane), two float32 outputs, 8
+        flops per (partition, channel, lane)."""
         share = lanes / width
-        return (int(_nbytes(ring, coeff) * share) + 2 * C * lanes * 4,
+
+        def plane(x):
+            if isinstance(x, K.IntPlanes):
+                return (int(_nbytes(x.hi, x.lo) * share)
+                        + x.scale.numel() // 128 * 4)
+            return int(_nbytes(x) * share)
+
+        return (plane(ring) + plane(coeff) + 2 * C * lanes * 4,
                 8 * p * C * lanes)
+
+    def log_plan(name, variant, p, lanes, c=C):
+        """Log the launch plan (``mac_hc_plan``) a ring MAC takes at P
+        ``p``, ``c`` channels and ``lanes`` lanes (132 SMs on a CPU
+        rehearsal); returns it."""
+        sms = K._sm_count(dev) if dev.type == "cuda" else 132
+        plan = K.mac_hc_plan(p, c, lanes, sms)
+        log(f"kernel {name} [{variant}]: plan S {plan.slices} partition "
+            f"slices, unroll {plan.unroll}, grid {plan.grid} of "
+            f"{plan.width} x {plan.slices} threads")
+        return plan
+
+    def same_bits(name, variant, kernel):
+        """Two calls of a sliced launch give the same bits."""
+        a, b = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit(f"chip_smoke: {name} [{variant}] gave other "
+                             "bits on a second call")
+        log(f"kernel {name} [{variant}]: two calls equal bit for bit")
 
     for cs in (C, 1):
         ring, coeff = rn(ph, 2 * C, hh), rn(ph, 2 * cs, hh)
@@ -521,6 +550,9 @@ def check_kernels():
             lambda: K.mac_hc(ring, coeff, 5),
             lambda: K.mac_hc_plain(ring, coeff, 5),
             mac_cost(ring, coeff, ph, hh, hh) if cs == C else None)
+    log_plan("mac_hc", f"f32 [{ph}, {2 * C}, {hh}]", ph, hh)
+    log_plan("mac_hc_tiled, mac_hc_tiled_int", f"[{pt}, {2 * C}, {ht}]", pt,
+             ht)
     for dt in (torch.float32, torch.bfloat16):
         for cs in (C, 1):
             ring, coeff = rn(pt, 2 * C, ht).to(dt), rn(pt, 2 * cs, ht).to(dt)
@@ -538,6 +570,7 @@ def check_kernels():
                 lambda: K.mac_hc_tiled(ring, coeff, 3),
                 lambda: K.mac_hc_plain(ring, coeff, 3))
         run(*args)
+        log_plan(*args[:2], p3, hp3)
         ms, bound, by = _log_times(*args, None,
                                    mac_cost(ring, coeff, p3, hp3, hp3))
         k2_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
@@ -557,6 +590,7 @@ def check_kernels():
                 "K shard", lambda: kern(ring, coeff, 0),
                 lambda: K.mac_hc_plain(ring, coeff, 0))
         run(*args)
+        log_plan(*args[:2], p_l, hp_l)
         ms, bound, by = _log_times(*args, None,
                                    mac_cost(ring, coeff, p_l, hp_l, hp_l))
         also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
@@ -565,27 +599,75 @@ def check_kernels():
     # K1 and K3 at session M's shapes (N = 64, M = 512): the head of the
     # smallest lane count K1 takes, [16, 128, 128], and the int24 tail of
     # 254 partitions, [254, 128, 512], one tile of all its lanes
+    # K2 float32 at session M's tail shape, and K3 int24 at N = 128's tail
+    # [126, 128, 1024]: "also" rows. Each sliced shape must give the same
+    # bits in two calls; its plan is logged.
     mp_h, mp_t, mh_h, mh_t = M_GEOM
     ring, coeff = rn(mp_h, 2 * C, mh_h), rn(mp_h, 2 * C, mh_h)
     args = ("mac_hc", f"float32 [{mp_h}, {2 * C}, {mh_h}], session M head",
             lambda: K.mac_hc(ring, coeff, 5),
             lambda: K.mac_hc_plain(ring, coeff, 5))
     run(*args)
+    log_plan(*args[:2], mp_h, mh_h)
+    same_bits(*args[:3])
     ms, bound, by = _log_times(*args, None,
                                mac_cost(ring, coeff, mp_h, mh_h, mh_h))
     k1_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
                     "library_ms": None, "bound_ms": bound, "bound_by": by})
-    ring = K.quantize_planes(rn(mp_t, 2 * C, mh_t), 24)
-    coeff = K.quantize_planes(rn(mp_t, 2 * C, mh_t), 24)
-    args = ("mac_hc_tiled_int", f"int24 [{mp_t}, {2 * C}, {mh_t}], session "
-            "M tail", lambda: K.mac_hc_tiled_int(ring, coeff, 77, tile=mh_t),
-            lambda: K.mac_reference_hc_int(ring, coeff, 77))
+    coeff1 = rn(mp_h, 2, mh_h)
+    run("mac_hc", f"float32 [{mp_h}, {2 * C}, {mh_h}], coeff rows 2, "
+        "session M head", lambda: K.mac_hc(ring, coeff1, 0),
+        lambda: K.mac_hc_plain(ring, coeff1, 0))
+    ring, coeff = rn(mp_t, 2 * C, mh_t), rn(mp_t, 2 * C, mh_t)
+    args = ("mac_hc_tiled", f"float32 [{mp_t}, {2 * C}, {mh_t}], session M "
+            "tail shape", lambda: K.mac_hc_tiled(ring, coeff, 77, tile=mh_t),
+            lambda: K.mac_hc_plain(ring, coeff, 77))
     run(*args)
-    ms, bound, by = _log_times(*args, None, mac_cost(
-        tuple(ring), tuple(coeff), mp_t, mh_t, mh_t))
-    k3_also = [{"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
-                "library_ms": None, "bound_ms": bound, "bound_by": by}]
-    del ring, coeff
+    log_plan(*args[:2], mp_t, mh_t)
+    same_bits(*args[:3])
+    ms, bound, by = _log_times(*args, None,
+                               mac_cost(ring, coeff, mp_t, mh_t, mh_t))
+    k2_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                    "library_ms": None, "bound_ms": bound, "bound_by": by})
+    ringb = ring.to(torch.bfloat16)
+    coeffb = rn(mp_t, 2, mh_t).to(torch.bfloat16)
+    run("mac_hc_tiled", f"bf16 [{mp_t}, {2 * C}, {mh_t}], coeff rows 2, "
+        "session M tail shape",
+        lambda: K.mac_hc_tiled(ringb, coeffb, 1, tile=mh_t),
+        lambda: K.mac_hc_plain(ringb, coeffb, 1))
+    del ring, coeff, coeff1, ringb, coeffb
+    k3_also = []
+    for p3, hp3, where in ((mp_t, mh_t, "session M tail"),
+                           ((TAPS - 16 * 128) // 1024, 1024, "N = 128 tail")):
+        ring = K.quantize_planes(rn(p3, 2 * C, hp3), 24)
+        coeff = K.quantize_planes(rn(p3, 2 * C, hp3), 24)
+        args = ("mac_hc_tiled_int", f"int24 [{p3}, {2 * C}, {hp3}], {where}",
+                lambda: K.mac_hc_tiled_int(ring, coeff, 77, tile=hp3),
+                lambda: K.mac_reference_hc_int(ring, coeff, 77))
+        run(*args)
+        log_plan(*args[:2], p3, hp3)
+        same_bits(*args[:3])
+        cost = mac_cost(ring, coeff, p3, hp3, hp3)
+        if hp3 == mh_t:
+            whole = _nbytes(ring, coeff) + 2 * C * hp3 * 4
+            log(f"kernel mac_hc_tiled_int [{args[1]}]: bytes {cost[0] / 1e6:.1f}"
+                f" MB with 4 B of scale a row (what the kernel reads); "
+                f"{whole / 1e6:.1f} MB with the whole [.., 128] scale planes,"
+                " as counted before")
+        ms, bound, by = _log_times(*args, None, cost)
+        k3_also.append({"shape": args[1], "ms": ms[0], "plain_ms": ms[1],
+                        "library_ms": None, "bound_ms": bound,
+                        "bound_by": by})
+        if hp3 == mh_t:  # the sliced path's other integer kinds, shared rows
+            for bits in ((16, 16), (24, 16)):
+                r16 = K.quantize_planes(rn(p3, 2 * C, hp3), bits[0])
+                c16 = K.quantize_planes(rn(p3, 2, hp3), bits[1])
+                run("mac_hc_tiled_int", f"int{bits[0]} ring, int{bits[1]} "
+                    f"coeff rows 2 [{p3}, {2 * C}, {hp3}], {where}",
+                    lambda: K.mac_hc_tiled_int(r16, c16, 3, tile=hp3),
+                    lambda: K.mac_reference_hc_int(r16, c16, 3))
+            del r16, c16
+        del ring, coeff
     out["mac_hc"]["also"] = k1_also
     out["mac_hc_tiled"]["also"] = k2_also
     for bits in (24, 16):
@@ -595,7 +677,7 @@ def check_kernels():
             run("mac_hc_tiled_int", f"int{bits}, coeff rows {2 * cs}",
                 lambda: K.mac_hc_tiled_int(ring, coeff, 9),
                 lambda: K.mac_reference_hc_int(ring, coeff, 9),
-                mac_cost(tuple(ring), tuple(coeff), pt, ht, ht)
+                mac_cost(ring, coeff, pt, ht, ht)
                 if cs == C and bits == 24 else None)
     out["mac_hc_tiled_int"]["also"] = k3_also
     # K4: timed at the tail-fire shape [64, 8192] (and logged at [64,
@@ -646,8 +728,25 @@ def check_kernels():
                     lambda: K.mac_hc_band_int(ring, coeff, 11, band * bl, bl),
                     lambda: K.mac_reference_hc_band_int(ring, coeff, 11,
                                                         band * bl, bl),
-                    mac_cost(tuple(ring), tuple(coeff), pt, bl, ht)
+                    mac_cost(ring, coeff, pt, bl, ht)
                     if cs == C and bits == 24 and band == 3 else None)
+    log_plan("mac_hc_band, mac_hc_band_int", f"band of {bl} lanes, P {pt}",
+             pt, bl)
+    # K5 and K6 with two channels, where the bands are sliced: band 0 (the
+    # lane-0 law) and band 3, untimed
+    ring2, coeff2 = rn(pt, 4, ht), rn(pt, 2, ht)
+    ri2 = K.quantize_planes(ring2, 24)
+    ci2 = K.quantize_planes(coeff2, 24)
+    log_plan("mac_hc_band, mac_hc_band_int", f"2 channels, band of {bl} "
+             f"lanes, P {pt}", pt, bl, 2)
+    for band in (0, 3):
+        run("mac_hc_band", f"f32 [{pt}, 4, {ht}], band {band}, coeff rows 2",
+            lambda: K.mac_hc_band(ring2, coeff2, 4, band * bl, bl),
+            lambda: K.mac_reference_hc_band(ring2, coeff2, 4, band * bl, bl))
+        run("mac_hc_band_int", f"int24 [{pt}, 4, {ht}], band {band}, coeff "
+            "rows 2", lambda: K.mac_hc_band_int(ri2, ci2, 6, band * bl, bl),
+            lambda: K.mac_reference_hc_band_int(ri2, ci2, 6, band * bl, bl))
+    del ring2, coeff2, ri2, ci2
     out["corr_mac"]["also"] = check_corr_mac(run, rn)
     # K8: the packed engine's MAC at the flagship, P = 128, Fp = 1152, over
     # the N + 1 live bins (the engine's rows are zero beyond them)
@@ -659,6 +758,9 @@ def check_kernels():
         lambda: K.mac_packed(ring, coeff, 77, nf),
         lambda: K.mac_packed_plain(ring, coeff, 77, nf),
         mac_cost(ring, coeff, pp, nf, fp))
+    log_plan("mac_packed", f"[{pp}, {2 * C}, {fp}]", pp,
+             K._packed_lanes(fp, nf))
+    log_ptxas("mac_hc_kernel")
     out["quantize_hp_tpdf"] = {}  # its row's place; checked last, below
     check_uniform_macs(run, mac_cost, ring, coeff)
     for name, at in check_fft_family(run).items():
@@ -3599,7 +3701,7 @@ def session_m_phases(sp):
                              f"differs: {rel:.2e}")
     single, queued = [], []
     for k in range(ratio):
-        _, step = _m_stepper(sp, blocks)
+        held, step = _m_stepper(sp, blocks)
         single.append(_event_ms(lambda: step(k)))
         queued.append(_queued_ms(lambda: step(k), what=f"step_nu phase {k}"))
     log("session M (d): step_nu(phase=k) CUDA-event ms a call, k = 0.."
@@ -3607,6 +3709,17 @@ def session_m_phases(sp):
         + ", ".join(f"{v:.4f}" for v in single) + "; device, 8 queued "
         "calls: " + ", ".join(_ms(v) for v in queued)
         + f"; budget {M_BUDGET_MS:.4f} ms")
+    # the fire phase's tail MAC (K3 on the session's int24 tail) alone, on
+    # the stepped state's ring: its share of the fire phase's device time
+    ring = held["st"].tail.ring
+    tail_ms = _uncounted(_queued_ms, lambda: NU._tail_mac(
+        ring, sp._coeffs.tail, 0), 8, "tail MAC")
+    fire = queued[-1]
+    share = ("not measured" if None in (tail_ms, fire)
+             else f"{100 * tail_ms / fire:.1f}%")
+    log(f"session M (d): the tail MAC (K3 on the int24 tail "
+        f"{list(ring.hi.shape)}) alone {_ms(tail_ms)} ms device (8 queued "
+        f"calls), {share} of the fire phase's {_ms(fire)} ms")
 
 
 def main():

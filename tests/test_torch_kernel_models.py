@@ -1,7 +1,8 @@
 """The designs of K12 (``bfir_tpu_torch/csrc/mac_tail_hc.cu``), K9
-(``bfir_tpu_torch/csrc/dither_q.cu``) and K7
-(``bfir_tpu_torch/csrc/corr_mac.cu``) modelled on the CPU, where no CUDA
-compiler runs.
+(``bfir_tpu_torch/csrc/dither_q.cu``), K7
+(``bfir_tpu_torch/csrc/corr_mac.cu``) and the ring MAC of K1-K3, K5, K6
+and K8 (``bfir_tpu_torch/csrc/mac_hc.cu``) modelled on the CPU, where no
+CUDA compiler runs.
 
 K12: a numpy model of the kernel's decomposition with its constants parsed
 from the CUDA source and its plan from the wrapper (``mac_tail_plan``):
@@ -42,7 +43,21 @@ output never written would show. Every output has one owner (block,
 thread) and is written once per tap chunk. The model runs in float64
 against the port's plain version in float64 (1e-12 x max: the same sums
 in another order) and in float32 against the reference's Pallas kernel
-in interpret mode (1e-5 x max)."""
+in interpret mode (1e-5 x max).
+
+K1-K3, K5, K6, K8: a numpy model of the ring MAC's decomposition with
+its constants parsed from the CUDA source and its plan from the wrapper
+(``mac_hc_plan``): blocks of width x S threads on a (quad blocks,
+channels) grid, thread (x, s) summing the contiguous partition slice
+[s P / S, (s + 1) P / S) of its quad in partition order, slice 0 adding
+the other slices' sums in slice order and writing each output once.
+Outputs start as NaN; every (channel, quad, partition) must be taken
+exactly once. The plan is checked over a grid of shapes and SM counts
+(coverage, S <= P, the card's block limits, S = 1 at the flagship's K1,
+K2 and K3 shapes). The model runs in float64 against the port's plain
+versions in float64 (1e-12 x max) and in float32 against the reference's
+Pallas kernels in interpret mode (1e-5 x max), at session M's partition
+counts and lane widths with two or three channels."""
 
 import os
 import re
@@ -568,3 +583,269 @@ def test_k7_model_matches_pallas_float32(shape):
         assert g.dtype == np.float32 and g.shape == r.shape
         np.testing.assert_allclose(g, r, rtol=0,
                                    atol=1e-5 * np.abs(r).max())
+
+
+# ---------------------------------------------------------------------------
+# K1-K3, K5, K6, K8: the ring MAC (csrc/mac_hc.cu)
+# ---------------------------------------------------------------------------
+
+def _k1():
+    k = _constants("mac_hc.cu")
+    return tuple(int(k[n]) for n in ("kThreads", "kMaxSlices", "kMaxBlock",
+                                     "kSliceUnroll"))
+
+
+MAC_THREADS, MAC_SLICES, MAC_BLOCK, MAC_UNROLL = _k1()
+SMEM_STATIC = 48 * 1024  # shared memory a block gets without opting in
+
+
+def test_mac_hc_constants_match_the_wrapper():
+    assert (MAC_THREADS, MAC_SLICES, MAC_BLOCK, MAC_UNROLL) == (
+        K._MAC_THREADS, K._MAC_SLICES, K._MAC_BLOCK, K._MAC_UNROLL)
+    assert MAC_THREADS % 32 == 0 and MAC_BLOCK <= 1024 and MAC_UNROLL > 1
+
+
+def _mac_slices(p, s_count):
+    """Slice s's partitions, as the kernel cuts them."""
+    return [range(s * p // s_count, (s + 1) * p // s_count)
+            for s in range(s_count)]
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("band_len", [128, 512, 1024, 8192, 1028])
+@pytest.mark.parametrize("c", [1, 2, 64])
+@pytest.mark.parametrize("p", [1, 3, 16, 254])
+def test_mac_hc_plan_covers_the_work_once(p, c, band_len, sms):
+    """Every (channel, quad, partition) is taken by exactly one thread;
+    S <= P; the block fits the card (threads, shared memory, grid); an
+    unsliced plan keeps one partition's loads in flight."""
+    plan = K.mac_hc_plan(p, c, band_len, sms)
+    s_count, width = plan.slices, plan.width
+    quads = -(-band_len // 4)
+    assert 1 <= s_count <= min(p, MAC_SLICES)
+    assert width in (32, MAC_THREADS) and (
+        width == MAC_THREADS or quads <= 32
+        or s_count * MAC_THREADS > MAC_BLOCK)
+    assert width * s_count <= MAC_BLOCK <= 1024
+    assert (s_count - 1) * 2 * width * 16 <= SMEM_STATIC
+    assert plan.unroll == (1 if s_count == 1 else MAC_UNROLL)
+    assert plan.grid == (-(-quads // width), c) and c <= 65535
+    # each quad of a channel belongs to one thread column of one block
+    q = (np.arange(plan.grid[0])[:, None] * width
+         + np.arange(width)[None, :]).ravel()
+    q = q[q < quads]
+    assert np.array_equal(np.sort(q), np.arange(quads))
+    # the slices' runs tile [0, P): each partition once
+    taken = np.zeros(p, dtype=int)
+    for run in _mac_slices(p, s_count):
+        assert len(run) >= 1
+        taken[list(run)] += 1
+    assert (taken == 1).all()
+    if s_count > 1:  # slicing only where the quads leave the card short
+        assert c * quads < sms * K._MAC_FILL
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 1024), (14, 64, 8192),
+                                   (14, 64, 1024), (78, 64, 8192),
+                                   (16, 64, 8192), (8, 64, 65536),
+                                   (4, 64, 8192), (2, 64, 65536)],
+                         ids=["k1-head", "k2-k3-tail", "k5-k6-band",
+                              "j-two-stage-tail", "j-mid", "j-far",
+                              "k-shard-tail", "k-shard-far"])
+def test_mac_hc_plan_keeps_the_flagship_unsliced(shape):
+    """The flagship's K1 [16, 128, 1024], K2/K3 [14, 128, 8192] and the
+    bands of K5/K6, and session J's and K's tails, keep one slice: the
+    schedule and sum order they had before slicing."""
+    assert K.mac_hc_plan(*shape, 132) == K.MacPlan(
+        1, 1, MAC_THREADS, (-(-shape[2] // 4 // MAC_THREADS), shape[1]))
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 128), (254, 64, 512),
+                                   (126, 64, 1024)],
+                         ids=["m-head", "m-tail", "n128-tail"])
+def test_mac_hc_plan_slices_few_lanes(shape):
+    """Session M's head and tail (N = 64) and N = 128's tail are sliced."""
+    plan = K.mac_hc_plan(*shape, 132)
+    threads = shape[1] * shape[2] // 4
+    assert plan.slices > 1
+    assert threads * plan.slices >= 132 * K._MAC_FILL or (
+        plan.slices == min(MAC_SLICES, shape[0]))
+    assert threads * (plan.slices - 1) < 132 * K._MAC_FILL  # the fewest
+
+
+def mac_hc_model(ring, coeff, pos, plan, b0=0, bl=None, lane0=True):
+    """csrc/mac_hc.cu on numpy planes ring [P, 2C, Hp], coeff [P, 2C | 2,
+    Hp] (decoded; float64 or float32 throughout) under ``plan``, over the
+    lanes [b0, b0 + bl) -> (yr, yi) [C, bl]."""
+    p, c2, hp = ring.shape
+    c, cs = c2 // 2, coeff.shape[1] // 2
+    bl = hp - b0 if bl is None else bl
+    dt = ring.dtype
+    s_count, width = plan.slices, plan.width
+    gx, gy = plan.grid
+    quads = bl // 4
+    assert gy == c and (gx - 1) * width < quads <= gx * width
+    yr = np.full((c, bl), np.nan, dtype=dt)
+    yi = np.full((c, bl), np.nan, dtype=dt)
+    writes = np.zeros((c, bl), dtype=int)
+    taken = np.zeros((c, quads, p), dtype=int)
+    runs = _mac_slices(p, s_count)
+    for by in range(gy):
+        cc = 0 if cs == 1 else by
+        for bx in range(gx):
+            q = bx * width + np.arange(width)
+            q = q[q < quads]  # live threads; the rest only meet the barrier
+            k = (q[:, None] * 4 + np.arange(4)).ravel()
+            g = b0 + k
+            l0 = lane0 & (g == 0)  # (DC.re, Nyquist.re): two products
+            parts = []
+            for run in runs:  # thread (x, s): its slice in partition order
+                ar = np.zeros(k.shape, dtype=dt)
+                ai = np.zeros(k.shape, dtype=dt)
+                for pp in run:
+                    slot = (pos - pp) % p
+                    rr, ri = ring[slot, by, g], ring[slot, c + by, g]
+                    cr, ci = coeff[pp, cc, g], coeff[pp, cs + cc, g]
+                    ar = ar + np.where(l0, cr * rr, cr * rr - ci * ri)
+                    ai = ai + np.where(l0, ci * ri, cr * ri + ci * rr)
+                    taken[by, q, pp] += 1
+                parts.append((ar, ai))
+            ar, ai = parts[0]
+            for pr, pi in parts[1:]:  # slice 0 adds them in slice order
+                ar, ai = ar + pr, ai + pi
+            yr[by, k], yi[by, k] = ar, ai
+            writes[by, k] += 1
+    assert (taken == 1).all() and (writes == 1).all()
+    return yr, yi
+
+
+# (P, C, Cs, Hp, band): session M's head (16 x 128 lanes) and tail (254 x
+# 512), N = 128's tail (126 x 1024), a shared filter, K5/K6 bands with and
+# without lane 0
+MAC_SHAPES = [(16, 3, 3, 128, None), (16, 3, 1, 128, None),
+              (254, 2, 2, 512, None), (126, 2, 2, 1024, None),
+              (14, 2, 1, 1024, (0, 256)), (14, 2, 2, 1024, (384, 256))]
+MAC_IDS = ["m-head", "m-head-shared", "m-tail", "n128-tail",
+           "band0-shared", "band3"]
+
+
+def _mac_inputs(p, c, cs, hp, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((p, 2 * c, hp)),
+            rng.standard_normal((p, 2 * cs, hp)))
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("shape", MAC_SHAPES, ids=MAC_IDS)
+def test_mac_hc_model_matches_plain_float64(shape, sms):
+    p, c, cs, hp, band = shape
+    b0, bl = band or (0, hp)
+    plan = K.mac_hc_plan(p, c, bl, sms)
+    ring, coeff = _mac_inputs(p, c, cs, hp, 70 + p + hp)
+    pos = 5 % p
+    got = mac_hc_model(ring, coeff, pos, plan, b0, bl, lane0=True)
+    ref = K.mac_reference_hc_band(torch.from_numpy(ring),
+                                  torch.from_numpy(coeff), pos, b0, bl)
+    for g, r in zip(got, ref):
+        r = r.numpy()
+        assert r.dtype == np.float64 and np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-12 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_mac_packed_model_matches_plain_float64(sms):
+    """K8: no lane-0 law, the first N + 1 lanes rounded up to 4 (257
+    quads: a last block of one live quad)."""
+    p, c, fp, nf = 16, 2, 1152, 1025
+    nb = K._packed_lanes(fp, nf)
+    plan = K.mac_hc_plan(p, c, nb, sms)
+    ring, coeff = _mac_inputs(p, c, c, fp, 81)
+    got = mac_hc_model(ring, coeff, 7, plan, 0, nb, lane0=False)
+    ref = K.mac_packed_plain(torch.from_numpy(ring), torch.from_numpy(coeff),
+                             7, nf)
+    for g, r in zip(got, ref):
+        r = r.numpy()
+        assert g.shape == (c, nb) and np.isfinite(g).all()
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-12 * np.abs(r).max())
+
+
+def _close32(got, ref):
+    ref = np.asarray(ref)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("cs", [3, 1], ids=["per_channel", "shared"])
+def test_mac_hc_model_matches_pallas_head(cs):
+    """float32, session M's head [16, 2C, 128]: the model against
+    ``mac_pallas_hc`` in interpret mode."""
+    p, c, hp = 16, 3, 128
+    ring, coeff = (t.astype(np.float32)
+                   for t in _mac_inputs(p, c, cs, hp, 90 + cs))
+    jr, ji = JK.mac_pallas_hc(jnp.asarray(ring), jnp.asarray(coeff),
+                              jnp.int32(5), interpret=True)
+    plan = K.mac_hc_plan(p, c, hp, 132)
+    assert plan.slices > 1
+    got = mac_hc_model(ring, coeff, 5, plan)
+    _close32(got[0], jr)
+    _close32(got[1], ji)
+
+
+@pytest.mark.parametrize("bits", [(24, 24), (16, 16), (24, 16)],
+                         ids=["int24", "int16", "int24_ring_int16_coeff"])
+def test_mac_hc_model_matches_pallas_int_tail(bits):
+    """float32, session M's int tail [254, 2C, 512] (C = 2): the model on
+    the decoded planes against ``mac_pallas_hc_tiled_int`` in interpret
+    mode."""
+    p, c, hp = 254, 2, 512
+    ring, coeff = (t.astype(np.float32)
+                   for t in _mac_inputs(p, c, c, hp, 95 + sum(bits)))
+    jr, ji = JK.mac_pallas_hc_tiled_int(
+        JK.quantize_planes(jnp.asarray(ring), bits[0]),
+        JK.quantize_planes(jnp.asarray(coeff), bits[1]), jnp.int32(77),
+        tile=hp, interpret=True)
+    dec = [K.dequantize_planes(K.quantize_planes(torch.from_numpy(t), b))
+           .numpy() for t, b in ((ring, bits[0]), (coeff, bits[1]))]
+    plan = K.mac_hc_plan(p, c, hp, 132)
+    assert plan.slices > 1
+    got = mac_hc_model(*dec, 77, plan)
+    _close32(got[0], jr)
+    _close32(got[1], ji)
+
+
+@pytest.mark.parametrize("band", [0, 3])
+def test_mac_hc_model_matches_pallas_band(band):
+    """float32, K5 bands of 256 lanes of [14, 2C, 1024] (C = 2): the model
+    against ``mac_pallas_hc_band`` in interpret mode (lane 0 in band 0
+    only)."""
+    p, c, hp, bl = 14, 2, 1024, 256
+    ring, coeff = (t.astype(np.float32)
+                   for t in _mac_inputs(p, c, c, hp, 100 + band))
+    jr, ji = JK.mac_pallas_hc_band(jnp.asarray(ring), jnp.asarray(coeff),
+                                   jnp.int32(4), band * bl, bl,
+                                   interpret=True)
+    plan = K.mac_hc_plan(p, c, bl, 132)
+    assert plan.slices > 1
+    got = mac_hc_model(ring, coeff, 4, plan, band * bl, bl, lane0=True)
+    _close32(got[0], jr)
+    _close32(got[1], ji)
+
+
+def test_mac_packed_model_matches_pallas():
+    """float32, K8 over [16, 2C, 256] planes with N + 1 = 129 live lanes
+    (132 computed; the rows are zero beyond 129, as the engine keeps
+    them): the model against ``mac_pallas_packed`` in interpret mode."""
+    p, c, fp, nf = 16, 2, 256, 129
+    ring, coeff = (t.astype(np.float32) for t in _mac_inputs(p, c, c, fp, 110))
+    ring[..., nf:] = 0
+    coeff[..., nf:] = 0
+    jr, ji = JK.mac_pallas_packed(jnp.asarray(ring), jnp.asarray(coeff),
+                                  jnp.int32(9), interpret=True)
+    nb = K._packed_lanes(fp, nf)
+    plan = K.mac_hc_plan(p, c, nb, 132)
+    assert plan.slices > 1
+    got = mac_hc_model(ring, coeff, 9, plan, 0, nb, lane0=False)
+    _close32(got[0], np.asarray(jr)[:, :nb])
+    _close32(got[1], np.asarray(ji)[:, :nb])

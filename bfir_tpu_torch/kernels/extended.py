@@ -19,6 +19,11 @@ used again. The MAC is one gather over all partitions and complex
 arithmetic in PyTorch; the reference computes it outside any Pallas kernel
 too, so it is no kernel's plain version. Every output is float64 (the
 reference's ``_emit`` gives float64 only on x64 hosts).
+
+With a tracer current (``utils.profiling.current``), a step records its
+phases as spans: ``engine.rfft`` (the frame, its float64 cast and
+transform), ``engine.insert`` (the ring-slot writes), ``engine.mac`` and
+``engine.irfft``, a MAC and an inverse per filter on a crossfade block.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels.spectrum_mac import _round_up, mac_reference_hc
 from bfir_tpu_torch.ops import fft as F
+from bfir_tpu_torch.utils import profiling as P
 from bfir_tpu_torch.utils.device import resolve_device
 
 
@@ -102,23 +108,37 @@ def mac_df(ring: torch.Tensor, coeff: torch.Tensor,
                             coeff[:, cs:], pos)
 
 
-def _advance(state: DfState, block: torch.Tensor):
+def _advance(state: DfState, block: torch.Tensor, tr):
     """Frame spectrum into ring slot ``blockcounter % P`` (in place);
-    returns (ring, new prev, pos)."""
+    returns (ring, new prev, pos). ``tr``: the tracer to record into, or
+    None."""
     p, c2, _ = state.ring.shape
     n = block.shape[-1]
+    if tr is not None:
+        tr.begin("engine.rfft")
     frame = torch.cat([state.prev, block.to(torch.float64)], dim=-1)
     hr, hi = F.rfft_split_hc(frame)
+    if tr is not None:
+        tr.next("engine.insert")
     pos = state.blockcounter % p
     h = hr.shape[-1]  # lanes [h, Hp) stay zero
     state.ring[pos, : c2 // 2, :h] = hr
     state.ring[pos, c2 // 2:, :h] = hi
+    if tr is not None:
+        tr.end()
     return state.ring, frame[:, n:], pos
 
 
-def _render(ring, coeff, pos: int, n: int) -> torch.Tensor:
+def _render(ring, coeff, pos: int, n: int, tr) -> torch.Tensor:
+    if tr is not None:
+        tr.begin("engine.mac")
     yr, yi = mac_df(ring, coeff, pos)
-    return F.irfft_hc_tail(yr, yi, n=2 * n)
+    if tr is not None:
+        tr.next("engine.irfft")
+    out = F.irfft_hc_tail(yr, yi, n=2 * n)
+    if tr is not None:
+        tr.end()
+    return out
 
 
 def step_df(state: DfState, coeff: torch.Tensor,
@@ -127,8 +147,9 @@ def step_df(state: DfState, coeff: torch.Tensor,
     overlap-save tail. ``block`` [C, N] of any float dtype; the output
     [C, N] is float64."""
     n = block.shape[-1]
-    ring, prev, pos = _advance(state, block)
-    out = _render(ring, coeff, pos, n)
+    tr = P.current()
+    ring, prev, pos = _advance(state, block, tr)
+    out = _render(ring, coeff, pos, n, tr)
     return DfState(ring, prev, state.blockcounter + 1), out
 
 
@@ -138,9 +159,10 @@ def step_df_crossfade(state: DfState, coeff_old: torch.Tensor,
     """Glitch-free filter-change block: one ring advance, two MACs, and a
     linear ramp old -> new over the block (fftw_convolver.cpp:275-321)."""
     n = block.shape[-1]
-    ring, prev, pos = _advance(state, block)
-    out_old = _render(ring, coeff_old, pos, n)
-    out_new = _render(ring, coeff_new, pos, n)
+    tr = P.current()
+    ring, prev, pos = _advance(state, block, tr)
+    out_old = _render(ring, coeff_old, pos, n, tr)
+    out_new = _render(ring, coeff_new, pos, n, tr)
     ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
     out = out_old * (1.0 - ramp) + out_new * ramp
     return DfState(ring, prev, state.blockcounter + 1), out

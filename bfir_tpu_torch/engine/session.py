@@ -59,10 +59,12 @@ Tracing: a ``utils.profiling.Tracer`` set as ``StreamProcessor.tracer``
 (``process``, and ``process_raw`` and crossfades through it) as one
 ``session.process`` span with ``session.to_device`` (the block's input
 copy), ``engine.step`` (the engine's step; ``extended`` records its phases
-inside), ``session.fetch`` (a drain's join and device-to-host copy, which
-waits for the device), ``session.guard`` (the NaN check) and
-``session.overflow`` (the overflow count) inside it, and counts the blocks
-stepped in ``session.blocks``.
+inside, or on a CUDA device one ``engine.replay`` of its graph),
+``session.fetch`` (a drain's join and device-to-host copy, which waits for
+the device), ``session.guard`` (the NaN check) and ``session.overflow``
+(the overflow count) inside it, and counts the blocks stepped in
+``session.blocks`` (and ``extended``'s graph replays and captures in
+``engine.graph_replays`` and ``engine.graph_captures``).
 """
 
 from __future__ import annotations
@@ -512,7 +514,8 @@ class StreamProcessor:
                                                            device=dev)
         elif impl == "extended":
             pinfo("Engine precision: extended (native float64).")
-            self._step = E.step_df
+            # on a card each block replays one CUDA graph of the step
+            self._step = E.GraphStep()
             self._init_state = lambda: E.init_df_state(fspec, n_channels,
                                                        device=dev)
         else:

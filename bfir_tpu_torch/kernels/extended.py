@@ -24,6 +24,13 @@ With a tracer current (``utils.profiling.current``), a step records its
 phases as spans: ``engine.rfft`` (the frame, its float64 cast and
 transform), ``engine.insert`` (the ring-slot writes), ``engine.mac`` and
 ``engine.irfft``, a MAC and an inverse per filter on a crossfade block.
+
+The ring position a step reads is ``slot_order``, a device index, so the
+step can be captured. ``GraphStep``, the session's step, runs ``step_df``'s
+body on buffers of its own: on a CUDA device captured once as a CUDA graph
+and replayed for each block (one ``engine.replay`` span, and the counters
+``engine.graph_replays`` and ``engine.graph_captures``), on the CPU
+eagerly.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from bfir_tpu_torch.core.spec import FilterSpec
-from bfir_tpu_torch.kernels.spectrum_mac import _round_up, mac_reference_hc
+from bfir_tpu_torch.kernels.spectrum_mac import _round_up
 from bfir_tpu_torch.ops import fft as F
 from bfir_tpu_torch.utils import profiling as P
 from bfir_tpu_torch.utils.device import resolve_device
@@ -96,49 +103,88 @@ def df_coeffs(impulse, spec: FilterSpec, n_channels: int, scale: float = 1.0,
     return torch.from_numpy(pk).to(resolve_device(device))
 
 
+def slot_order(pos: int, p: int, device) -> torch.Tensor:
+    """``mac_df``'s gather order at ring position ``pos``: [P] int64, entry
+    i = (pos - i) mod P, the ring slot partition i reads; entry 0 is the
+    slot a block's spectrum goes to."""
+    return torch.remainder(pos - torch.arange(p, device=device), p)
+
+
 def mac_df(ring: torch.Tensor, coeff: torch.Tensor,
-           pos: int) -> Tuple[torch.Tensor, torch.Tensor]:
+           idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The partition MAC on packed float64 planes: for each partition i,
-    coeff[i] times ring slot (pos - i) mod P, summed (lane 0 as two real
-    products). ``coeff`` is [P, 2C, Hp] or shared [P, 2, Hp]. Returns
-    (yr, yi), each [C, Hp]."""
+    coeff[i] times ring slot ``idx[i]`` (``slot_order``), summed (lane 0 as
+    two real products): ``mac_reference_hc``'s products, lane-0 law and
+    sum, gathered in one pass over the packed ring at an order kept on the
+    device, so a CUDA graph can hold it. ``coeff`` is [P, 2C, Hp] or shared
+    [P, 2, Hp]. Returns (yr, yi), each [C, Hp]."""
     c = ring.shape[1] // 2
     cs = coeff.shape[1] // 2
-    return mac_reference_hc(ring[:, :c], ring[:, c:], coeff[:, :cs],
-                            coeff[:, cs:], pos)
+    slots = ring.index_select(0, idx)
+    rr, ri = slots[:, :c], slots[:, c:]
+    coeff_re, coeff_im = coeff[:, :cs], coeff[:, cs:]
+    p1 = coeff_re * rr
+    p2 = coeff_im * ri
+    a_r = p1 - p2
+    a_i = coeff_re * ri + coeff_im * rr
+    a_r[..., 0] = p1[..., 0]
+    a_i[..., 0] = p2[..., 0]
+    return a_r.sum(dim=0), a_i.sum(dim=0)
 
 
-def _advance(state: DfState, block: torch.Tensor, tr):
-    """Frame spectrum into ring slot ``blockcounter % P`` (in place);
-    returns (ring, new prev, pos). ``tr``: the tracer to record into, or
-    None."""
-    p, c2, _ = state.ring.shape
-    n = block.shape[-1]
-    if tr is not None:
-        tr.begin("engine.rfft")
-    frame = torch.cat([state.prev, block.to(torch.float64)], dim=-1)
+def _insert(ring: torch.Tensor, frame: torch.Tensor, idx: torch.Tensor,
+            tr) -> None:
+    """The spectrum of ``frame`` [C, 2N] float64 (the previous block, then
+    this one) into ring slot ``idx[0]``, in place. ``tr``: the tracer, its
+    ``engine.rfft`` span open since the frame's making, or None."""
+    c = ring.shape[1] // 2
     hr, hi = F.rfft_split_hc(frame)
     if tr is not None:
         tr.next("engine.insert")
-    pos = state.blockcounter % p
     h = hr.shape[-1]  # lanes [h, Hp) stay zero
-    state.ring[pos, : c2 // 2, :h] = hr
-    state.ring[pos, c2 // 2:, :h] = hi
+    ring[:, :c, :h].index_copy_(0, idx[:1], hr[None])
+    ring[:, c:, :h].index_copy_(0, idx[:1], hi[None])
     if tr is not None:
         tr.end()
-    return state.ring, frame[:, n:], pos
 
 
-def _render(ring, coeff, pos: int, n: int, tr) -> torch.Tensor:
+def _render(ring, coeff, idx, n: int, tr) -> torch.Tensor:
     if tr is not None:
         tr.begin("engine.mac")
-    yr, yi = mac_df(ring, coeff, pos)
+    yr, yi = mac_df(ring, coeff, idx)
     if tr is not None:
         tr.next("engine.irfft")
     out = F.irfft_hc_tail(yr, yi, n=2 * n)
     if tr is not None:
         tr.end()
     return out
+
+
+def _step_at(ring: torch.Tensor, frame: torch.Tensor, idx: torch.Tensor,
+             coeff: torch.Tensor, tr) -> torch.Tensor:
+    """The block step on buffers updated in place, its ring position on the
+    device: ``frame`` [C, 2N] float64 holds the previous block, then this
+    one, and ``idx`` is ``slot_order`` at this block. Afterwards the frame's
+    first half holds this block (the next step's previous block) and
+    ``idx`` the next block's order. Returns the output [C, N] float64.
+    ``tr``: the tracer, its ``engine.rfft`` span open, or None."""
+    n = frame.shape[-1] // 2
+    _insert(ring, frame, idx, tr)
+    frame[:, :n].copy_(frame[:, n:])
+    out = _render(ring, coeff, idx, n, tr)
+    idx.add_(1).remainder_(ring.shape[0])
+    return out
+
+
+def _frame(state: DfState, block: torch.Tensor, tr):
+    """(frame, idx): ``state.prev`` then the block at float64, [C, 2N], and
+    ``slot_order`` at the state's block. Opens the ``engine.rfft`` span of
+    ``tr`` (the tracer, or None)."""
+    if tr is not None:
+        tr.begin("engine.rfft")
+    frame = torch.cat([state.prev, block.to(torch.float64)], dim=-1)
+    return frame, slot_order(state.blockcounter, state.ring.shape[0],
+                             frame.device)
 
 
 def step_df(state: DfState, coeff: torch.Tensor,
@@ -148,9 +194,9 @@ def step_df(state: DfState, coeff: torch.Tensor,
     [C, N] is float64."""
     n = block.shape[-1]
     tr = P.current()
-    ring, prev, pos = _advance(state, block, tr)
-    out = _render(ring, coeff, pos, n, tr)
-    return DfState(ring, prev, state.blockcounter + 1), out
+    frame, idx = _frame(state, block, tr)
+    out = _step_at(state.ring, frame, idx, coeff, tr)
+    return DfState(state.ring, frame[:, :n], state.blockcounter + 1), out
 
 
 def step_df_crossfade(state: DfState, coeff_old: torch.Tensor,
@@ -160,9 +206,145 @@ def step_df_crossfade(state: DfState, coeff_old: torch.Tensor,
     linear ramp old -> new over the block (fftw_convolver.cpp:275-321)."""
     n = block.shape[-1]
     tr = P.current()
-    ring, prev, pos = _advance(state, block, tr)
-    out_old = _render(ring, coeff_old, pos, n, tr)
-    out_new = _render(ring, coeff_new, pos, n, tr)
+    frame, idx = _frame(state, block, tr)
+    _insert(state.ring, frame, idx, tr)
+    out_old = _render(state.ring, coeff_old, idx, n, tr)
+    out_new = _render(state.ring, coeff_new, idx, n, tr)
     ramp = torch.arange(n, dtype=out_old.dtype, device=out_old.device) / (n - 1)
     out = out_old * (1.0 - ramp) + out_new * ramp
-    return DfState(ring, prev, state.blockcounter + 1), out
+    return DfState(state.ring, frame[:, n:], state.blockcounter + 1), out
+
+
+class GraphStep:
+    """The session's ``extended`` step for one stream: called as
+    ``step(state, coeff, block)`` and returning ``(state, out)`` as
+    ``step_df`` does, with its body (``_step_at``) on buffers of its own:
+    a ring, a frame whose first half is ``prev``, and the ring position on
+    the device, ``idx``.
+
+    On a CUDA device the body is captured once as a CUDA graph that reads a
+    coefficient plane of the step's own, and each block is copied into the
+    frame, the graph replayed and its output cloned (the caller may hold
+    many outputs at once). A coefficient plane other than the last one
+    passed (a filter change) is copied into the step's plane, on the
+    stream, with no capture. On the CPU the body runs eagerly.
+
+    The returned state's ``ring`` and ``prev`` are the buffers themselves,
+    which the next step updates in place. A state the step did not return
+    last (a fresh one, a crossfade's, a restored one) is copied into the
+    buffers and the position set from its ``blockcounter``: device copies,
+    no sync. The graph is captured again when the geometry or the
+    coefficient plane's shape changes, and when the cuFFT plan cache has
+    shrunk or changed its size limit since the last step, since the
+    graph's transforms point into the cached plans' memory (torch holds a
+    plan nowhere else). The size and the limit are all the step sees of
+    the cache: a clear followed, before the next block, by as many new
+    plans as it held goes unseen. While the cache is full, where any new
+    plan may evict one of the graph's, the body runs eagerly.
+
+    ``captures`` and ``replays`` count the step's captures and replays."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self._ring = self._frame = self._prev = self._idx = None
+        self._state = None  # the state this step returned last
+        self._graph = self._out = None
+        self._plane = None  # the coefficient plane the graph reads
+        self._coeff = None  # the plane last copied into it
+        self._cache = None  # the device's cuFFT plan cache (None: the CPU)
+        self._plans = None  # its (size, max_size) at the last look
+
+    def __call__(self, state: DfState, coeff: torch.Tensor,
+                 block: torch.Tensor) -> Tuple[DfState, torch.Tensor]:
+        if state is not self._state:
+            self._load(state, block.shape[-1])
+        tr = P.current()
+        out = None if self._cache is None else self._replay(coeff, block, tr)
+        if out is None:
+            if tr is not None:
+                tr.begin("engine.rfft")
+            self._frame[:, block.shape[-1]:].copy_(block)
+            out = _step_at(self._ring, self._frame, self._idx, coeff, tr)
+        self._state = DfState(self._ring, self._prev, state.blockcounter + 1)
+        return self._state, out
+
+    def _load(self, state: DfState, n: int) -> None:
+        """Take up a state this step did not return last: its geometry's
+        buffers (new ones, and no graph, where it changed), its planes and
+        its position."""
+        ring = state.ring
+        if (self._ring is None or self._ring.shape != ring.shape
+                or self._ring.device != ring.device
+                or self._frame.shape[-1] != 2 * n):
+            dev = ring.device
+            self._graph = self._out = self._plane = self._coeff = None
+            self._plans = None
+            self._ring = torch.zeros_like(ring)
+            self._frame = torch.zeros((ring.shape[1] // 2, 2 * n),
+                                      dtype=torch.float64, device=dev)
+            self._prev = self._frame[:, :n]
+            self._idx = torch.zeros(ring.shape[0], dtype=torch.int64,
+                                    device=dev)
+            self._cache = (torch.backends.cuda.cufft_plan_cache[dev.index]
+                           if dev.type == "cuda" else None)
+        self._ring.copy_(ring)  # a copy onto itself is no copy
+        self._prev.copy_(state.prev)
+        self._idx.copy_(slot_order(state.blockcounter, ring.shape[0],
+                                   ring.device))
+
+    def _replay(self, coeff: torch.Tensor, block: torch.Tensor, tr):
+        """The block through the graph, captured first where there is none
+        for ``coeff``'s shape; None (run the body eagerly) while the plan
+        cache is full."""
+        size, limit = self._cache.size, self._cache.max_size
+        if self._plans is not None and (size < self._plans[0]
+                                        or limit != self._plans[1]):
+            self._graph = None  # plans the graph points into may be gone
+        self._plans = (size, limit)
+        if tr is not None:
+            tr.count("engine.graph_replays", int(size < limit))
+        if size >= limit:
+            self._graph = self._out = self._plane = self._coeff = None
+            return None
+        if self._graph is None or self._plane.shape != coeff.shape:
+            self._capture(coeff, tr)
+            self._plans = (self._cache.size, self._cache.max_size)
+        elif coeff is not self._coeff:
+            self._plane.copy_(coeff)
+            self._coeff = coeff
+        if tr is not None:
+            tr.begin("engine.replay")
+        self._frame[:, block.shape[-1]:].copy_(block)
+        self._graph.replay()
+        out = self._out.clone()
+        if tr is not None:
+            tr.end()
+        self.replays += 1
+        return out
+
+    def _capture(self, coeff: torch.Tensor, tr) -> None:
+        """Capture ``_step_at`` on the buffers and a copy of ``coeff``. A
+        first eager run on copies of the buffers, on the capture stream,
+        makes the cuFFT plans; the capture itself runs nothing, so the
+        buffers keep the stream."""
+        self._graph = self._out = None
+        self._plane, self._coeff = coeff.clone(), coeff
+        dev = self._ring.device
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            _step_at(self._ring.clone(), self._frame.clone(),
+                     self._idx.clone(), self._plane, None)
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = _step_at(self._ring, self._frame, self._idx,
+                               self._plane, None)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self._graph, self._out = graph, out
+        self.captures += 1
+        if tr is not None:
+            tr.count("engine.graph_captures")

@@ -145,9 +145,14 @@ def test_df_coeffs_matches_hc_coeffs_layout():
     assert tuple(sh.shape) == (p, 2, pk.shape[-1])
     per = E.df_coeffs(np.repeat(h[:1], c, 0), _spec(n, p), c, device="cpu")
     ring = torch.from_numpy(rng.standard_normal(tuple(per.shape)))
-    for got, want in zip(E.mac_df(ring, sh, 3), E.mac_df(ring, per, 3)):
+    idx = E.slot_order(3, p, "cpu")
+    for got, want in zip(E.mac_df(ring, sh, idx), E.mac_df(ring, per, idx)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-13)
+    # the device-order MAC is the hc path's plain MAC, bit for bit
+    for got, want in zip(E.mac_df(ring, per, idx), K.mac_reference_hc(
+            ring[:, :c], ring[:, c:], per[:, :c], per[:, c:], 3)):
+        assert torch.equal(got, want)
 
 
 def test_hc_coeffs_precise_layout_and_accuracy():
@@ -233,6 +238,63 @@ def test_df_state_moves_between_packages(start):
     y = np.concatenate([ya, yb], 1)
     assert snr_db(y, whole) >= 160
     assert snr_db(y, ref) >= 160
+
+
+@pytest.mark.parametrize("handoff", ["fresh", "reset", "crossfade",
+                                     "convert"])
+def test_graph_step_body_matches_step_df(handoff):
+    """``GraphStep`` on CPU tensors runs ``step_df``'s body (the ring
+    position on the device) eagerly on buffers of its own: over 3P + 5
+    blocks, the ring wrapping 3 times, its outputs and states equal
+    ``step_df``'s bit for bit and the reference's df64 ``step_df`` to >=
+    160 dB, across a handoff at block P + 3 that each stream takes alike:
+    none after the fresh state, a reset to a fresh state, an eager
+    ``step_df_crossfade`` block to a second filter, or a round trip of the
+    state through ``convert``."""
+    c, n, p = 2, 64, 8
+    blocks = 3 * p + 5
+    h, x, ref = _problem(5, c, n, p, blocks=blocks)
+    h2 = _problem(6, c, n, p)[0]
+    tspec, jspec = _spec(n, p), _spec(n, p, JS, "float32")
+    planes = [E.df_coeffs(g, tspec, c, device="cpu") for g in (h, h2)]
+    pairs = [JE.df_coeffs(g, jspec, c) for g in (h, h2)]
+    step = E.GraphStep()
+    jstep, jxfade = jax.jit(JE.step_df), jax.jit(JE.step_df_crossfade)
+    sg, se = (E.init_df_state(tspec, c, device="cpu") for _ in range(2))
+    js = JE.init_df_state(jspec, c)
+    yg, ye, yj = [], [], []
+    k = 0  # the filter in use
+    for b in range(blocks):
+        blk = x[:, b * n:(b + 1) * n]
+        tb, jb = torch.from_numpy(blk), jnp.asarray(blk)
+        if b == p + 3 and handoff == "reset":
+            sg, se = (E.init_df_state(tspec, c, device="cpu")
+                      for _ in range(2))
+            js = JE.init_df_state(jspec, c)
+        if b == p + 3 and handoff == "convert":
+            sg, se = (convert.df_state_from_numpy(
+                convert.df_state_to_numpy(s), "cpu") for s in (sg, se))
+        if b == p + 3 and handoff == "crossfade":
+            sg, og = E.step_df_crossfade(sg, *planes, tb)
+            se, oe = E.step_df_crossfade(se, *planes, tb)
+            js, oj = jxfade(js, *pairs, jb)
+            k = 1
+        else:
+            sg, og = step(sg, planes[k], tb)
+            se, oe = E.step_df(se, planes[k], tb)
+            js, oj = jstep(js, *pairs[k], jb)
+        yg.append(og.numpy())
+        ye.append(oe.numpy())
+        yj.append(np.asarray(oj, np.float64))
+    yg, ye, yj = (np.concatenate(y, 1) for y in (yg, ye, yj))
+    np.testing.assert_array_equal(yg, ye)
+    assert torch.equal(sg.ring, se.ring) and torch.equal(sg.prev, se.prev)
+    assert sg.blockcounter == se.blockcounter == (
+        blocks - p - 3 if handoff == "reset" else blocks)
+    assert snr_db(yg, yj) >= 160
+    if handoff == "fresh":
+        assert snr_db(yg, ref) >= 240
+    assert step.captures == step.replays == 0  # no graph on the CPU
 
 
 def test_init_df_state_refuses_missing_cuda():

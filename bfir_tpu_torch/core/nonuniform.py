@@ -23,6 +23,14 @@ float32 for every tier. ``head_store`` takes float32, int24 or int16.
 
 The three-stage engine (``Nu3Spec``, ``step_nu3``, below) replaces the tail
 with a whole two-stage engine at block M1 = ratio1 * N.
+
+With a tracer current (``utils.profiling.current``), the two- and
+three-stage steps record each block's head step as an ``engine.head`` span
+and each tail fire (the M-block's forward transform, the tail MAC, its
+inverse and the pending push) as an ``engine.tail`` span, counted in
+``engine.tail_fires``. A three-stage far fire is an ``engine.tail`` inside
+its mid fire's, and counts too. The split-tail schedule, which spreads its
+fire over the cycle, records neither.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels import fft_fused as FF
 from bfir_tpu_torch.kernels import spectrum_mac as K
 from bfir_tpu_torch.ops import fft as F
+from bfir_tpu_torch.utils import profiling as P
 
 
 @dataclass(frozen=True)
@@ -280,9 +289,37 @@ def _head_step(state: K.HcState, coeff, block):
     return K.HcState(ring, prev, state.blockcounter + 1), out
 
 
+def _head(step, *args):
+    """``step(*args)``, a block's head step, in an ``engine.head`` span
+    while a tracer is current."""
+    tr = P.current()
+    if tr is None:
+        return step(*args)
+    tr.begin("engine.head")
+    out = step(*args)
+    tr.end()
+    return out
+
+
 def _push_pending(pending, z):
     """Drop the consumed M-block and append the newest tail output."""
     return torch.cat([pending[1:], z[None].to(pending.dtype)], dim=0)
+
+
+def _fire(fire, tail, inbuf, pending):
+    """``fire(tail, inbuf) -> (tail, z)``, z pushed to ``pending``; in an
+    ``engine.tail`` span, counted in ``engine.tail_fires``, while a tracer
+    is current. Returns (tail, pending)."""
+    tr = P.current()
+    if tr is None:
+        tail, z = fire(tail, inbuf)
+        return tail, _push_pending(pending, z)
+    tr.count("engine.tail_fires")
+    tr.begin("engine.tail")
+    tail, z = fire(tail, inbuf)
+    pending = _push_pending(pending, z)
+    tr.end()
+    return tail, pending
 
 
 def _cycle(state, block, phase: int, head, y_head, fire):
@@ -297,8 +334,7 @@ def _cycle(state, block, phase: int, head, y_head, fire):
     out = y_head + state.pending[0][:, off:off + n]
     tail, pending = state.tail, state.pending
     if phase == state.inbuf.shape[-1] // n - 1:
-        tail, z = fire(tail, state.inbuf)
-        pending = _push_pending(pending, z)
+        tail, pending = _fire(fire, tail, state.inbuf, pending)
     return type(state)(head, tail, state.inbuf, pending), out
 
 
@@ -321,7 +357,7 @@ def step_nu(state: NuState, coeffs: NuCoeffs, block: torch.Tensor,
         phase = state.head.blockcounter % ratio
     elif not 0 <= phase < ratio:
         raise ValueError(f"phase {phase} outside [0, {ratio})")
-    head, y_head = _head_step(state.head, coeffs.head, block)
+    head, y_head = _head(_head_step, state.head, coeffs.head, block)
     return _cycle(state, block, phase, head, y_head,
                   lambda tail, mb: _tail_step(tail, coeffs.tail, mb))
 
@@ -377,10 +413,10 @@ def step_nu_crossfade(state: NuState, coeffs_old: NuCoeffs,
     ``step_nu`` (fftw_convolver.cpp:275-321's law, per stage)."""
     phase = _phase(state, block)
     if head_ramp:
-        head, y_head = _head_ramp(state.head, coeffs_old.head,
-                                  coeffs_new.head, block)
+        head, y_head = _head(_head_ramp, state.head, coeffs_old.head,
+                             coeffs_new.head, block)
     else:
-        head, y_head = _head_step(state.head, coeffs_new.head, block)
+        head, y_head = _head(_head_step, state.head, coeffs_new.head, block)
     return _cycle(state, block, phase, head, y_head,
                   lambda tail, mb: _bridge(tail, coeffs_old.tail,
                                            coeffs_new.tail, mb))
@@ -398,11 +434,11 @@ def step_nu_macro(state: NuState, coeffs: NuCoeffs,
     head = state.head
     outs = []
     for i in range(r):
-        head, y = _head_step(head, coeffs.head, mblocks[i])
+        head, y = _head(_head_step, head, coeffs.head, mblocks[i])
         outs.append(y + state.pending[0][:, i * n:(i + 1) * n])
     state.inbuf.copy_(mblocks.transpose(0, 1).reshape(c, r * n))
-    tail, z = _tail_step(state.tail, coeffs.tail, state.inbuf)
-    pending = _push_pending(state.pending, z)
+    tail, pending = _fire(lambda t, mb: _tail_step(t, coeffs.tail, mb),
+                          state.tail, state.inbuf, state.pending)
     return NuState(head, tail, state.inbuf, pending), torch.stack(outs)
 
 
@@ -767,7 +803,7 @@ def step_nu3(state: Nu3State, coeffs: Nu3Coeffs,
     fire on phase R1-1 runs one step of the inner two-stage engine on the
     completed M1-block, which fires its far stage every R2 such steps."""
     phase = _phase(state, block)
-    head, y_head = K.step_hc(state.head, coeffs.head, block)
+    head, y_head = _head(K.step_hc, state.head, coeffs.head, block)
     return _cycle(state, block, phase, head, y_head,
                   lambda tail, mb: _step_nu_tiled_head(tail, coeffs.tail, mb))
 
@@ -813,10 +849,10 @@ def step_nu3_crossfade(state: Nu3State, coeffs_old: Nu3Coeffs,
     touched: they carry the old filter's output, where each ramp starts."""
     phase = _phase(state, block)
     if head_ramp:
-        head, y_head = _head_ramp(state.head, coeffs_old.head,
-                                  coeffs_new.head, block)
+        head, y_head = _head(_head_ramp, state.head, coeffs_old.head,
+                             coeffs_new.head, block)
     else:
-        head, y_head = K.step_hc(state.head, coeffs_new.head, block)
+        head, y_head = _head(K.step_hc, state.head, coeffs_new.head, block)
     return _cycle(state, block, phase, head, y_head,
                   lambda tail, mb: step_nu_crossfade_tiled_head(
                       tail, coeffs_old.tail, coeffs_new.tail, mb,

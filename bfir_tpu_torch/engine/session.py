@@ -59,12 +59,15 @@ Tracing: a ``utils.profiling.Tracer`` set as ``StreamProcessor.tracer``
 (``process``, and ``process_raw`` and crossfades through it) as one
 ``session.process`` span with ``session.to_device`` (the block's input
 copy), ``engine.step`` (the engine's step; ``extended`` records its phases
-inside, or on a CUDA device one ``engine.replay`` of its graph),
+inside, or on a CUDA device one ``engine.replay`` of its graph, and the
+two- and three-stage engines an ``engine.head`` a block and an
+``engine.tail`` a fire),
 ``session.fetch`` (a drain's join and device-to-host copy, which waits for
 the device), ``session.guard`` (the NaN check) and ``session.overflow``
 (the overflow count) inside it, and counts the blocks stepped in
 ``session.blocks`` (and ``extended``'s graph replays and captures in
-``engine.graph_replays`` and ``engine.graph_captures``).
+``engine.graph_replays`` and ``engine.graph_captures``, and the stage
+engines' tail fires in ``engine.tail_fires``).
 """
 
 from __future__ import annotations

@@ -60,14 +60,17 @@ Tracing: a ``utils.profiling.Tracer`` set as ``StreamProcessor.tracer``
 ``session.process`` span with ``session.to_device`` (the block's input
 copy), ``engine.step`` (the engine's step; ``extended`` records its phases
 inside, or on a CUDA device one ``engine.replay`` of its graph, and the
-two- and three-stage engines an ``engine.head`` a block and an
+two- and three-stage engines an ``engine.head`` a block, on a CUDA device
+``nonuniform``'s the replay of its ring slot's graph, and an
 ``engine.tail`` a fire),
 ``session.fetch`` (a drain's join and device-to-host copy, which waits for
 the device), ``session.guard`` (the NaN check) and ``session.overflow``
 (the overflow count) inside it, and counts the blocks stepped in
 ``session.blocks`` (and ``extended``'s graph replays and captures in
-``engine.graph_replays`` and ``engine.graph_captures``, and the stage
-engines' tail fires in ``engine.tail_fires``).
+``engine.graph_replays`` and ``engine.graph_captures``, ``nonuniform``'s
+head replays in ``engine.head_replays`` and its captures in
+``engine.graph_captures``, and the stage engines' tail fires in
+``engine.tail_fires``).
 """
 
 from __future__ import annotations
@@ -470,7 +473,8 @@ class StreamProcessor:
         elif impl == "nonuniform":
             nuspec = self._nu_geometry(fspec, impl)
             self._nuspec = nuspec
-            self._step = NU.step_nu
+            # on a card each block's head step replays a CUDA graph
+            self._step = NU.NuGraphStep()
             self._init_state = lambda: NU.init_nu_state(nuspec, n_channels,
                                                         device=dev)
             pinfo("Engine: non-uniform partitions (head %u x %u + tail "

@@ -33,9 +33,9 @@ its mid fire's, and counts too. The split-tail schedule, which spreads its
 fire over the cycle, records neither.
 
 ``NuGraphStep``, the session's two-stage step, runs ``step_nu`` with its
-head step on buffers of its own: on a CUDA device replayed from a CUDA
-graph, one a head ring slot (counted in ``engine.head_replays``, its
-captures in ``engine.graph_captures``), on the CPU eagerly.
+head step on buffers of its own: on a CUDA device replayed from one graph
+a head ring slot (``utils.graphs``), counted in ``engine.head_replays``;
+on the CPU eagerly.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels import fft_fused as FF
 from bfir_tpu_torch.kernels import spectrum_mac as K
 from bfir_tpu_torch.ops import fft as F
+from bfir_tpu_torch.utils import graphs as G
 from bfir_tpu_torch.utils import profiling as P
 
 
@@ -367,31 +368,6 @@ def step_nu(state: NuState, coeffs: NuCoeffs, block: torch.Tensor,
                   lambda tail, mb: _tail_step(tail, coeffs.tail, mb))
 
 
-def _planes(fn, ring):
-    """``fn`` over a ring's or a plane's tensors (an ``IntPlanes``' fields,
-    ``lo`` may be None), in the same representation."""
-    if isinstance(ring, K.IntPlanes):
-        return K.IntPlanes(*(None if t is None else fn(t) for t in ring))
-    return fn(ring)
-
-
-def _layout(ring):
-    """What a buffer copy of ``ring`` (a ring or a plane) must match."""
-    if isinstance(ring, K.IntPlanes):
-        return tuple(None if t is None else (t.shape, t.dtype, t.device)
-                     for t in ring)
-    return ring.shape, ring.dtype, ring.device
-
-
-def _copy_planes(dst, src) -> None:
-    if isinstance(dst, K.IntPlanes):
-        for d, s in zip(dst, src):
-            if d is not None:
-                d.copy_(s)
-    else:
-        dst.copy_(src)
-
-
 class NuGraphStep:
     """The session's ``nonuniform`` step for one stream: called as
     ``step(state, coeffs, block)`` and returning ``(state, out)`` as
@@ -401,44 +377,33 @@ class NuGraphStep:
     ``engine.head`` span) runs on buffers of the step's own: the head ring,
     ``prev``, the block's input and the head's output.
 
-    On a CUDA device the head is replayed from a CUDA graph, one for each
-    head ring slot s: a capture of ``_head_step`` on ``HcState(ring, prev,
-    s)``, so that the slot (K1's ``pos``) is fixed in it, reading the input
-    buffer and a head coefficient plane of the step's own, and copying the
-    new ``prev`` and the output into the buffers. A block copies its input
-    in and replays the graph of slot ``blockcounter % p_head``; ``_cycle``'s
-    sum makes a new tensor of the output, so none is cloned. All p_head
-    graphs are captured at the first replay of a geometry, in one memory
-    pool (their replays follow one another, and nothing outlives one). A
-    head plane other than the last one passed (a filter change) is copied
-    into the step's plane, with no capture. On the CPU the same body runs
+    On a CUDA device the head is replayed from one graph a head ring slot
+    (``utils.graphs.StepGraphs``, whose rules say when they are captured
+    and when the head runs eagerly instead): a capture of ``_head_step`` on
+    ``HcState(ring, prev, s)``, so that the slot (K1's ``pos``) is fixed in
+    it, reading the input buffer and copying the new ``prev`` and the
+    output into the buffers. A block copies its input in and replays the
+    graph of slot ``blockcounter % p_head``; ``_cycle``'s sum makes a new
+    tensor of the output, so none is cloned. On the CPU the same body runs
     eagerly on the buffers, so the step is ``step_nu`` bit for bit.
 
     The returned state's ``head`` holds the ring and ``prev`` buffers
     themselves. A state the step did not return last (a fresh one, a
     crossfade's, a restored one) is copied into the buffers: device
     copies, no sync; a ring that is already the step's own (a crossfade or
-    ``process_buffer`` wrote its slot in place) is not copied. The graphs
-    are captured again when the geometry or the head plane's layout
-    changes, and when the cuFFT plan cache has shrunk or changed its size
-    limit since the last block; while it is full the head runs eagerly
-    (``kernels.extended.GraphStep``'s rule, for the same reason).
+    ``process_buffer`` wrote its slot in place) is not copied.
 
-    ``captures`` and ``replays`` count the step's captures and head
-    replays. A kernel's ``launches`` counts host launches, so a K1 (or K3)
-    in a graph counts once a capture, never a replay."""
+    ``graphs`` counts the step's captures and head replays. A kernel's
+    ``launches`` counts host launches, so a K1 (or K3) in a graph counts
+    once a capture, never a replay."""
 
     def __init__(self):
-        self.captures = 0
-        self.replays = 0
         self._key = None  # the layout the buffers were made for
         self._ring = self._prev = self._x = self._y = None
         self._state = None  # the state this step returned last
-        self._graphs = None  # one a head ring slot
-        self._plane = None  # the head coefficient plane the graphs read
-        self._coeff = None  # the plane last copied into it
-        self._cache = None  # the device's cuFFT plan cache (None: the CPU)
-        self._plans = None  # its (size, max_size) at the last look
+        self.graphs = G.StepGraphs(
+            lambda slot, coeff: self._body(slot, coeff, self._x),
+            self._warmup, "engine.head_replays")
 
     def __call__(self, state: NuState, coeffs: NuCoeffs,
                  block: torch.Tensor) -> Tuple[NuState, torch.Tensor]:
@@ -456,17 +421,15 @@ class NuGraphStep:
         layout's buffers (new ones, and no graphs, where it changed), its
         ring and its ``prev``."""
         prev = head.prev_block
-        key = (_layout(head.ring), prev.shape, prev.dtype)
+        key = (G.layout(head.ring), prev.shape, prev.dtype)
         if key != self._key:
             self._key = key
-            self._graphs = self._plane = self._coeff = self._plans = None
-            self._ring = _planes(torch.zeros_like, head.ring)
+            self._ring = G.map_planes(torch.zeros_like, head.ring)
             self._prev, self._x, self._y = (torch.zeros_like(prev)
                                             for _ in range(3))
-            self._cache = (torch.backends.cuda.cufft_plan_cache[
-                prev.device.index] if prev.device.type == "cuda" else None)
+            self.graphs.reset(prev.device, _ring_shape(self._ring)[0])
         if head.ring is not self._ring:
-            _copy_planes(self._ring, head.ring)
+            G.copy_planes(self._ring, head.ring)
         self._prev.copy_(prev)  # a copy onto itself is no copy
 
     def _body(self, slot: int, coeff, block) -> None:
@@ -476,70 +439,19 @@ class NuGraphStep:
         self._prev.copy_(head.prev_block)
         self._y.copy_(y)
 
+    def _warmup(self, coeff) -> None:
+        _head_step(K.HcState(G.map_planes(torch.clone, self._ring),
+                             self._prev.clone(), 0), coeff, self._x)
+
     def _head(self, cnt: int, coeff, block):
         """The head step of block ``cnt``: replayed, or eagerly on the CPU
         and while the plan cache is full."""
-        tr = P.current()
-        replayed = self._cache is not None and self._replay(cnt, coeff, block,
-                                                            tr)
-        if not replayed:
+        if self.graphs.ready(coeff, P.current()):
+            self._x.copy_(block)
+            self.graphs.replay(cnt % _ring_shape(self._ring)[0])
+        else:
             self._body(cnt, coeff, block)
-        if tr is not None and self._cache is not None:
-            tr.count("engine.head_replays", int(replayed))
         return K.HcState(self._ring, self._prev, cnt + 1), self._y
-
-    def _replay(self, cnt: int, coeff, block, tr) -> bool:
-        """The block's head through its slot's graph, all of them captured
-        first where there are none for ``coeff``'s layout; False (run the
-        body eagerly) while the plan cache is full."""
-        size, limit = self._cache.size, self._cache.max_size
-        if self._plans is not None and (size < self._plans[0]
-                                        or limit != self._plans[1]):
-            self._graphs = None  # plans the graphs point into may be gone
-        self._plans = (size, limit)
-        if size >= limit:
-            self._graphs = self._plane = self._coeff = None
-            return False
-        if self._graphs is None or _layout(self._plane) != _layout(coeff):
-            self._capture(coeff, tr)
-            self._plans = (self._cache.size, self._cache.max_size)
-        elif coeff is not self._coeff:
-            _copy_planes(self._plane, coeff)
-            self._coeff = coeff
-        self._x.copy_(block)
-        self._graphs[cnt % len(self._graphs)].replay()
-        self.replays += 1
-        return True
-
-    def _capture(self, coeff, tr) -> None:
-        """Capture ``_body`` at every head ring slot on the buffers and a
-        copy of ``coeff``. A first eager step on copies of the buffers, on
-        the capture stream, makes the cuFFT plans; the captures themselves
-        run nothing, so the buffers keep the stream."""
-        self._graphs = None
-        self._plane, self._coeff = _planes(torch.clone, coeff), coeff
-        dev = self._prev.device
-        stream = torch.cuda.Stream(device=dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            _head_step(K.HcState(_planes(torch.clone, self._ring),
-                                 self._prev.clone(), 0), self._plane, self._x)
-            for slot in range(_ring_shape(self._ring)[0]):
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    self._body(slot, self._plane, self._x)
-                finally:
-                    graph.capture_end()
-                graphs.append(graph)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self._graphs = graphs
-        self.captures += len(graphs)
-        if tr is not None:
-            tr.count("engine.graph_captures", len(graphs))
 
 
 def _tail_step2(state: K.HcState, coeff_a, coeff_b, mblock):

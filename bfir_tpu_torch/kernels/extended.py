@@ -27,9 +27,9 @@ transform), ``engine.insert`` (the ring-slot writes), ``engine.mac`` and
 
 The ring position a step reads is ``slot_order``, a device index, so the
 step can be captured. ``GraphStep``, the session's step, runs ``step_df``'s
-body on buffers of its own: on a CUDA device captured once as a CUDA graph
-and replayed for each block (one ``engine.replay`` span, and the counters
-``engine.graph_replays`` and ``engine.graph_captures``), on the CPU
+body on buffers of its own: on a CUDA device as one graph of the port's
+graph mechanism (``utils.graphs``), replayed for each block in one
+``engine.replay`` span and counted in ``engine.graph_replays``; on the CPU
 eagerly.
 """
 
@@ -43,6 +43,7 @@ import torch
 from bfir_tpu_torch.core.spec import FilterSpec
 from bfir_tpu_torch.kernels.spectrum_mac import _round_up
 from bfir_tpu_torch.ops import fft as F
+from bfir_tpu_torch.utils import graphs as G
 from bfir_tpu_torch.utils import profiling as P
 from bfir_tpu_torch.utils.device import resolve_device
 
@@ -222,49 +223,43 @@ class GraphStep:
     a ring, a frame whose first half is ``prev``, and the ring position on
     the device, ``idx``.
 
-    On a CUDA device the body is captured once as a CUDA graph that reads a
-    coefficient plane of the step's own, and each block is copied into the
-    frame, the graph replayed and its output cloned (the caller may hold
-    many outputs at once). A coefficient plane other than the last one
-    passed (a filter change) is copied into the step's plane, on the
-    stream, with no capture. On the CPU the body runs eagerly.
+    On a CUDA device the body is one graph (``utils.graphs.StepGraphs``,
+    whose rules say when it is captured and when the body runs eagerly
+    instead): each block is copied into the frame, the graph replayed and
+    its output cloned (the caller may hold many outputs at once). On the
+    CPU the body runs eagerly.
 
     The returned state's ``ring`` and ``prev`` are the buffers themselves,
     which the next step updates in place. A state the step did not return
     last (a fresh one, a crossfade's, a restored one) is copied into the
     buffers and the position set from its ``blockcounter``: device copies,
-    no sync. The graph is captured again when the geometry or the
-    coefficient plane's shape changes, and when the cuFFT plan cache has
-    shrunk or changed its size limit since the last step, since the
-    graph's transforms point into the cached plans' memory (torch holds a
-    plan nowhere else). The size and the limit are all the step sees of
-    the cache: a clear followed, before the next block, by as many new
-    plans as it held goes unseen. While the cache is full, where any new
-    plan may evict one of the graph's, the body runs eagerly.
-
-    ``captures`` and ``replays`` count the step's captures and replays."""
+    no sync. ``graphs`` counts the step's captures and replays."""
 
     def __init__(self):
-        self.captures = 0
-        self.replays = 0
         self._ring = self._frame = self._prev = self._idx = None
         self._state = None  # the state this step returned last
-        self._graph = self._out = None
-        self._plane = None  # the coefficient plane the graph reads
-        self._coeff = None  # the plane last copied into it
-        self._cache = None  # the device's cuFFT plan cache (None: the CPU)
-        self._plans = None  # its (size, max_size) at the last look
+        self.graphs = G.StepGraphs(
+            lambda _, coeff: _step_at(self._ring, self._frame, self._idx,
+                                      coeff, None),
+            self._warmup, "engine.graph_replays")
 
     def __call__(self, state: DfState, coeff: torch.Tensor,
                  block: torch.Tensor) -> Tuple[DfState, torch.Tensor]:
+        n = block.shape[-1]
         if state is not self._state:
-            self._load(state, block.shape[-1])
+            self._load(state, n)
         tr = P.current()
-        out = None if self._cache is None else self._replay(coeff, block, tr)
-        if out is None:
+        if self.graphs.ready(coeff, tr):
+            if tr is not None:
+                tr.begin("engine.replay")
+            self._frame[:, n:].copy_(block)
+            out = self.graphs.replay().clone()
+            if tr is not None:
+                tr.end()
+        else:
             if tr is not None:
                 tr.begin("engine.rfft")
-            self._frame[:, block.shape[-1]:].copy_(block)
+            self._frame[:, n:].copy_(block)
             out = _step_at(self._ring, self._frame, self._idx, coeff, tr)
         self._state = DfState(self._ring, self._prev, state.blockcounter + 1)
         return self._state, out
@@ -278,73 +273,18 @@ class GraphStep:
                 or self._ring.device != ring.device
                 or self._frame.shape[-1] != 2 * n):
             dev = ring.device
-            self._graph = self._out = self._plane = self._coeff = None
-            self._plans = None
             self._ring = torch.zeros_like(ring)
             self._frame = torch.zeros((ring.shape[1] // 2, 2 * n),
                                       dtype=torch.float64, device=dev)
             self._prev = self._frame[:, :n]
             self._idx = torch.zeros(ring.shape[0], dtype=torch.int64,
                                     device=dev)
-            self._cache = (torch.backends.cuda.cufft_plan_cache[dev.index]
-                           if dev.type == "cuda" else None)
+            self.graphs.reset(dev, 1)
         self._ring.copy_(ring)  # a copy onto itself is no copy
         self._prev.copy_(state.prev)
         self._idx.copy_(slot_order(state.blockcounter, ring.shape[0],
                                    ring.device))
 
-    def _replay(self, coeff: torch.Tensor, block: torch.Tensor, tr):
-        """The block through the graph, captured first where there is none
-        for ``coeff``'s shape; None (run the body eagerly) while the plan
-        cache is full."""
-        size, limit = self._cache.size, self._cache.max_size
-        if self._plans is not None and (size < self._plans[0]
-                                        or limit != self._plans[1]):
-            self._graph = None  # plans the graph points into may be gone
-        self._plans = (size, limit)
-        if tr is not None:
-            tr.count("engine.graph_replays", int(size < limit))
-        if size >= limit:
-            self._graph = self._out = self._plane = self._coeff = None
-            return None
-        if self._graph is None or self._plane.shape != coeff.shape:
-            self._capture(coeff, tr)
-            self._plans = (self._cache.size, self._cache.max_size)
-        elif coeff is not self._coeff:
-            self._plane.copy_(coeff)
-            self._coeff = coeff
-        if tr is not None:
-            tr.begin("engine.replay")
-        self._frame[:, block.shape[-1]:].copy_(block)
-        self._graph.replay()
-        out = self._out.clone()
-        if tr is not None:
-            tr.end()
-        self.replays += 1
-        return out
-
-    def _capture(self, coeff: torch.Tensor, tr) -> None:
-        """Capture ``_step_at`` on the buffers and a copy of ``coeff``. A
-        first eager run on copies of the buffers, on the capture stream,
-        makes the cuFFT plans; the capture itself runs nothing, so the
-        buffers keep the stream."""
-        self._graph = self._out = None
-        self._plane, self._coeff = coeff.clone(), coeff
-        dev = self._ring.device
-        stream = torch.cuda.Stream(device=dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            _step_at(self._ring.clone(), self._frame.clone(),
-                     self._idx.clone(), self._plane, None)
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = _step_at(self._ring, self._frame, self._idx,
-                               self._plane, None)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self._graph, self._out = graph, out
-        self.captures += 1
-        if tr is not None:
-            tr.count("engine.graph_captures")
+    def _warmup(self, coeff: torch.Tensor) -> None:
+        _step_at(self._ring.clone(), self._frame.clone(), self._idx.clone(),
+                 coeff, None)

@@ -294,7 +294,8 @@ def test_graph_step_body_matches_step_df(handoff):
     assert snr_db(yg, yj) >= 160
     if handoff == "fresh":
         assert snr_db(yg, ref) >= 240
-    assert step.captures == step.replays == 0  # no graph on the CPU
+    # no graph on the CPU
+    assert step.graphs.captures == step.graphs.replays == 0
 
 
 def test_init_df_state_refuses_missing_cuda():

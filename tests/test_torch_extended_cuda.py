@@ -73,30 +73,30 @@ def test_graph_replay_equals_eager_step_df(cuda_card, tmp_path):
         run(blocks)
     step = sp._step
     assert sp._impl == "extended" and isinstance(step, E.GraphStep)
-    assert step.captures == 1
+    assert step.graphs.captures == 1
     coeffs = [sp._coeffs]
     marks = {"reset": pos}
     sp.reset()
     run(40)
-    assert step.captures == 1
+    assert step.graphs.captures == 1
     marks["crossfade"] = pos
     sp.reconfigure(_config(paths[1]))
     run(40)
     coeffs.append(sp._coeffs)
-    assert step.captures == 1
+    assert step.graphs.captures == 1
     cache = torch.backends.cuda.cufft_plan_cache[0]
     cache.clear()
     run(40)
-    assert step.captures == 2
+    assert step.graphs.captures == 2
     limit = cache.max_size
     try:
         cache.max_size = cache.size  # full: the body runs eagerly
         run(20)
-        assert step.captures == 2
+        assert step.graphs.captures == 2
     finally:
         cache.max_size = limit
     run(20)
-    assert step.captures == 3
+    assert step.graphs.captures == 3
     run(20, sp.process_buffer)
     y = np.concatenate(got, axis=1)
     assert y.shape == (C, pos * N)
@@ -120,4 +120,4 @@ def test_graph_replay_equals_eager_step_df(cuda_card, tmp_path):
     # neither the crossfade block nor the 20 with the cache full
     assert tr.counters["engine.graph_replays"] == traced - 21
     assert tr.counters["engine.graph_captures"] == 2
-    assert step.replays == SELF_CHECK_BLOCKS + traced - 21 + 20
+    assert step.graphs.replays == SELF_CHECK_BLOCKS + traced - 21 + 20

@@ -110,7 +110,7 @@ def test_head_replay_equals_eager_step_nu(cuda_card, tmp_path):
     step = sp._step
     p_head = sp._nuspec.p_head
     assert sp._impl == "nonuniform" and isinstance(step, NU.NuGraphStep)
-    assert p_head == 16 and step.captures == p_head
+    assert p_head == 16 and step.graphs.captures == p_head
     launches = K.mac_hc.launches
     run(16)
     assert K.mac_hc.launches == launches  # 16 heads, all replayed
@@ -118,25 +118,25 @@ def test_head_replay_equals_eager_step_nu(cuda_card, tmp_path):
     marks = {"reset": pos}
     sp.reset()
     run(40)
-    assert step.captures == p_head
+    assert step.graphs.captures == p_head
     marks["crossfade"] = pos
     sp.reconfigure(_config(paths[1]))
     run(40)
     coeffs.append(sp._coeffs)
-    assert coeffs[1] is not coeffs[0] and step.captures == p_head
+    assert coeffs[1] is not coeffs[0] and step.graphs.captures == p_head
     cache = torch.backends.cuda.cufft_plan_cache[0]
     cache.clear()
     run(40)
-    assert step.captures == 2 * p_head
+    assert step.graphs.captures == 2 * p_head
     limit = cache.max_size
     try:
         cache.max_size = cache.size  # full: the head runs eagerly
         run(20)
-        assert step.captures == 2 * p_head
+        assert step.graphs.captures == 2 * p_head
     finally:
         cache.max_size = limit
     run(20)
-    assert step.captures == 3 * p_head
+    assert step.graphs.captures == 3 * p_head
     run(20, sp.process_buffer)
     run(20)
     y = np.concatenate(got, axis=1)
@@ -150,7 +150,7 @@ def test_head_replay_equals_eager_step_nu(cuda_card, tmp_path):
     # neither the crossfade's blocks nor the 20 with the cache full
     assert tr.counters["engine.head_replays"] == traced - special - 20
     assert tr.counters["engine.graph_captures"] == 2 * p_head
-    assert step.replays == SELF_CHECK_BLOCKS + traced - special - 20
+    assert step.graphs.replays == SELF_CHECK_BLOCKS + traced - special - 20
 
 
 def test_int24_head_replay_equals_eager_step_nu(cuda_card, tmp_path):
@@ -171,4 +171,4 @@ def test_int24_head_replay_equals_eager_step_nu(cuda_card, tmp_path):
     want, _ = _eager(sp, x, 80, {"reset": 50}, [sp._coeffs])
     np.testing.assert_array_equal(np.concatenate(y, axis=1), want)
     assert tr.counters["engine.head_replays"] == 80
-    assert sp._step.captures == 16
+    assert sp._step.graphs.captures == 16

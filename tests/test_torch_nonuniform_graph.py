@@ -102,7 +102,8 @@ def test_graph_step_equals_step_nu(tail, head, handoff):
             b, yb = NU.step_nu(b, coeffs, blk)
         assert torch.equal(ya, yb), k
         _assert_states_equal(a, b)
-    assert step.captures == step.replays == 0  # the CPU steps eagerly
+    # the CPU steps eagerly
+    assert step.graphs.captures == step.graphs.replays == 0
     # the state the step hands back holds its own buffers
     assert a.head.ring is step._ring and a.head.prev_block is step._prev
 

@@ -65,13 +65,14 @@ two- and three-stage engines an ``engine.head`` a block, on a CUDA device
 ``engine.tail`` a fire),
 ``session.fetch`` (a drain's join and device-to-host copy, which waits for
 the device), ``session.guard`` (the NaN check) and ``session.overflow``
-(the overflow count) inside it, and counts the blocks stepped in
-``session.blocks`` (and ``extended``'s graph replays in
-``engine.graph_replays``, ``nonuniform``'s head replays in
-``engine.head_replays``, the captures of either in
-``engine.graph_captures`` (``utils.graphs``, the one graph mechanism),
-and the stage engines' tail fires in ``engine.tail_fires``). Every block,
-a crossfade's too, is fetched and NaN-guarded by one drain.
+(the float output's overflow count, one pass a drain over the good blocks'
+fetched samples, on the host) inside it, and counts the blocks stepped in
+``session.blocks``, those passes in ``session.overflow_passes`` (and
+``extended``'s graph replays in ``engine.graph_replays``,
+``nonuniform``'s head replays in ``engine.head_replays``, the captures of
+either in ``engine.graph_captures`` (``utils.graphs``, the one graph
+mechanism), and the stage engines' tail fires in ``engine.tail_fires``).
+Every block, a crossfade's too, is fetched and NaN-guarded by one drain.
 """
 
 from __future__ import annotations
@@ -151,7 +152,9 @@ class StreamProcessor:
         self._bulk = None  # lazy BulkRenderer for render() (core/bulk.py)
         self._built_impulse = None  # chain impulse the current coeffs use
         self._built_scale = 1.0
-        self._overflow = None
+        self._overflow = None  # device stats: the integer output stage's
+        self._overflow_host = None  # host partial: the float output's
+        self._overflow_scratch = None  # |y| of a drain (_abs_scratch)
         self._last_overflow = None
         self._dither_state = None
         self._delay_fn = None  # apply_delay or a FractionalDelayLine
@@ -307,6 +310,7 @@ class StreamProcessor:
         self._pending = np.zeros((self._channels, 0), dtype=fspec.dtype)
         self._overflow = dth.init_overflow_stats(self._channels, dtype=dt,
                                                  device=self.device)
+        self._overflow_host = None
         self._last_overflow = self.overflow_stats()
         stream = self.config.stream
         self._dither_state = (
@@ -674,7 +678,8 @@ class StreamProcessor:
     def _drain_inflight(self, inflight, outs, tr, keep: int = 0,
                         on_device: bool = False) -> bool:
         """Fetch stepped block outputs in order (down to ``keep`` still
-        pending) with one device-to-host copy, NaN-guarding each block;
+        pending) with one device-to-host copy, NaN-guarding each block and
+        counting a float output's overflow over the good blocks in one pass;
         ``on_device`` keeps them on the device and copies only each block's
         first sample, for the guard. Returns False on a NaN abort: the
         offending block and every later stepped block pass through as their
@@ -700,12 +705,17 @@ class StreamProcessor:
         if tr is not None:
             tr.end()
         good = bad[0] if bad else k
-        for i in range(good):
-            if self.config.stream.out_format.isfloat:
-                self._count_overflow(batch[i][1], tr)
-            outs.append(got[:, i * n:(i + 1) * n])
-            if self.config.overflow_warnings:
-                self.check_overflows()
+        if good:
+            y = got[:, :good * n]
+            outs.append(y)
+            # one count over the good blocks; a warning reads the stats
+            # after each block, so then a count a block
+            step = n if self.config.overflow_warnings else y.shape[1]
+            for lo in range(0, y.shape[1], step):
+                if self.config.stream.out_format.isfloat:
+                    self._count_overflow(y[:, lo:lo + step], tr)
+                if self.config.overflow_warnings:
+                    self.check_overflows()
         if good == k:
             return True
         pinfo("NaN or Inf values in the system! Invalid input? Aborting.")
@@ -715,12 +725,46 @@ class StreamProcessor:
         inflight.clear()
         return False
 
-    def _count_overflow(self, out: torch.Tensor, tr) -> None:
+    def _count_overflow(self, y: np.ndarray, tr) -> None:
+        """Count the float output's fetched samples ``y`` [C, T] on the
+        host, into the host partial that ``overflow_stats`` adds and the
+        integer output stage folds in. ``tr``: the call's tracer, or
+        None."""
         if tr is not None:
+            tr.count("session.overflow_passes")
             tr.begin("session.overflow")
-        self._overflow = fm.count_float_overflow(out, self._overflow)
+        if self._overflow_host is None:  # zeros like the device's
+            self._overflow_host = dth.OverflowStats(*(
+                torch.zeros(t.shape, dtype=t.dtype).numpy()
+                for t in self._overflow))
+        self._overflow_host = fm.count_float_overflow_host(
+            y, self._overflow_host, out=self._abs_scratch(y))
         if tr is not None:
             tr.end()
+
+    def _abs_scratch(self, y: np.ndarray) -> Optional[np.ndarray]:
+        """An array of ``y``'s shape and dtype for its magnitudes, reused
+        from drain to drain so that a drain allocates nothing; None (a
+        temporary) for more samples than a drain holds."""
+        width = self.MAX_INFLIGHT * self.config.filter.block_length
+        if y.shape[1] > width:
+            return None
+        buf = self._overflow_scratch
+        if buf is None or buf.dtype != y.dtype or buf.size < y.size:
+            buf = self._overflow_scratch = np.empty(y.shape[0] * width,
+                                                    y.dtype)
+        return buf[:y.size].reshape(y.shape)
+
+    def _fold_overflow(self) -> None:
+        """Add the host partial into the device stats (the integer output
+        stage reads those)."""
+        part, self._overflow_host = self._overflow_host, None
+        if part is None:
+            return
+        of = self._overflow
+        self._overflow = of._replace(
+            n_overflows=of.n_overflows + self._to_device(part.n_overflows),
+            largest=torch.maximum(of.largest, self._to_device(part.largest)))
 
     def _stepped(self, block: np.ndarray, tr, special: bool = False,
                  swap=None) -> torch.Tensor:
@@ -931,10 +975,10 @@ class StreamProcessor:
             pinfo("NaN or Inf values in the system! Invalid input? Aborting.")
             self._failed = True
             return blocks.transpose(1, 0, 2).reshape(c, -1)
-        y = self._apply_delay(y)  # the delay lines take any length
+        y = self._apply_delay(y).cpu().numpy()  # delay lines take any length
         if self.config.stream.out_format.isfloat:
-            self._overflow = fm.count_float_overflow(y, self._overflow)
-        return y.cpu().numpy()
+            self._count_overflow(y, None)
+        return y
 
     def render(self, frames: np.ndarray,
                sample_rate: Optional[int] = None) -> np.ndarray:
@@ -974,8 +1018,7 @@ class StreamProcessor:
                 self._bulk = self._build_bulk()
             y = self._bulk.render(frames)
             if self.config.stream.out_format.isfloat and self._overflow is not None:
-                self._overflow = fm.count_float_overflow(
-                    torch.from_numpy(y).to(self.device), self._overflow)
+                self._count_overflow(y, None)
             return y
 
     def _build_bulk(self) -> BK.BulkRenderer:
@@ -1028,6 +1071,7 @@ class StreamProcessor:
                 if self._overflow is None:  # passthrough before any build
                     self._overflow = dth.init_overflow_stats(
                         y.shape[0], dtype=dt, device=self.device)
+                self._fold_overflow()  # counted while the output was float
                 if (self.config.stream.apply_dither
                         and self._dither_state is None):
                     self._dither_state = dth.init_dither_state(
@@ -1052,9 +1096,19 @@ class StreamProcessor:
     # -- observability ------------------------------------------------------
 
     def overflow_stats(self) -> Optional[dth.OverflowStats]:
-        if self._overflow is None:
-            return None
-        return dth.OverflowStats(*(t.cpu().numpy() for t in self._overflow))
+        """The running stats as numpy: the device's with the host
+        partial added (counts sum, peaks take their maximum). Under the
+        lock, so that a fold in ``process_raw`` is never seen half done."""
+        with self._lock:
+            if self._overflow is None:
+                return None
+            of = dth.OverflowStats(*(t.cpu().numpy() for t in self._overflow))
+            part = self._overflow_host
+        if part is None:
+            return of
+        return of._replace(
+            n_overflows=of.n_overflows + part.n_overflows,
+            largest=np.maximum(of.largest, part.largest))
 
     def check_overflows(self) -> None:
         """Print per-channel peak/overflow on change

@@ -110,6 +110,38 @@ def test_count_float_overflow_matches_reference():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("split", [None, 37])
+def test_count_float_overflow_host_matches_reference(dtype, split):
+    """The host count, one call or two split at a column, against the
+    reference's count of the whole: a NaN, an Inf and a -Inf past the
+    first sample, exact full scale (no count), and a quiet channel."""
+    x = (1.5 * np.random.default_rng(14).standard_normal((4, 256))
+         ).astype(dtype)
+    x[0, 5], x[0, 90] = np.nan, np.inf
+    x[1, 60], x[1, 200] = -np.inf, 1.0
+    x[2] = np.where(np.arange(256) % 2, 1.0, -1.0)
+    x[3] *= 0.1
+    jo = JFM.count_float_overflow(
+        jnp.asarray(x), JDT.init_overflow_stats(4, dtype=dtype))
+    of = DT.OverflowStats(*(
+        np.asarray(t) for t in JDT.init_overflow_stats(4, dtype=dtype)))
+    for part in ([x] if split is None else [x[:, :split], x[:, split:]]):
+        of = FM.count_float_overflow_host(part, of)
+    # the reference's int32 sum widens to int64 under x64; the port's
+    # count stays int32, as its device count does
+    assert of.n_overflows.dtype == np.int32
+    for name, a, b in zip(of._fields, of, jo):
+        b = np.asarray(b)
+        if name == "n_overflows":
+            b = b.astype(np.int32)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    assert of.largest.dtype == dtype
+    assert np.isnan(of.largest[0]) and np.isposinf(of.largest[1])
+    assert of.largest[2] == 1.0 and of.n_overflows[2] == 0
+    assert of.n_overflows[3] == 0 and of.n_overflows[1] > 1
+
+
 def test_complex_convolver_matches_reference():
     rng = np.random.default_rng(13)
     spec = FilterSpec(block_length=64, n_partitions=4, dtype="float64")

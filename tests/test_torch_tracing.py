@@ -65,8 +65,8 @@ def _call_tree(blocks):
     step = [("session.to_device", []),
             ("engine.step", [(name, []) for name in ENGINE])]
     return ("session.process",
-            step * blocks + [("session.fetch", []), ("session.guard", [])]
-            + [("session.overflow", [])] * blocks)
+            step * blocks + [("session.fetch", []), ("session.guard", []),
+                             ("session.overflow", [])])
 
 
 def _layer_split(spans):
@@ -133,7 +133,9 @@ def test_blocks_counter_counts_the_blocks_stepped(tmp_path, frames):
     sp.tracer = tr = P.Tracer()
     outs = [sp.process(x) for x in _chunks(frames, 3)]
     blocks = 3 * frames // N
-    assert tr.counters == {"session.blocks": blocks}
+    drains = sum(s.name == "session.fetch" for s in tr.spans)
+    assert tr.counters == {"session.blocks": blocks,
+                           "session.overflow_passes": drains}
     assert sum(o.shape[1] for o in outs) == blocks * N
     assert sum(s.name == "engine.step" for s in tr.spans) == blocks
 
@@ -188,7 +190,8 @@ def test_crossfade_block_is_traced(tmp_path):
         ("session.guard", []), ("session.overflow", []),
         ("session.to_device", []), plain, ("session.fetch", []),
         ("session.guard", []), ("session.overflow", [])])
-    assert tr.counters == {"session.blocks": 2}
+    assert tr.counters == {"session.blocks": 2,
+                           "session.overflow_passes": 2}
 
 
 def test_a_call_that_raises_closes_its_spans(tmp_path):
@@ -245,7 +248,8 @@ def test_capacity_drops_spans_and_counts_them(tmp_path):
     assert len(kept) == 10
     assert capped.dropped == len(whole.spans) - 10
     assert [s.name for s in kept] == [s.name for s in whole.spans[:10]]
-    assert capped.counters == whole.counters == {"session.blocks": 8}
+    assert capped.counters == whole.counters == {
+        "session.blocks": 8, "session.overflow_passes": 2}
     assert capped._open == []
 
 

@@ -97,11 +97,17 @@ class Catalog:
             (w for w in bench["workloads"] if w["name"] == name), None)
         if entry is None:
             raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+        traffic = self.traffic(entry["traffic"])
+        limits = self.limits(name)
+        loop = traffic["loop"]
+        if "late_pct" in limits and not self.driver(loop).RECORDS_LATENCY:
+            raise ValueError(
+                f"{name}: its limits name late_pct, but its loop {loop!r} "
+                "records no per-block latencies")
         return Cell(
             name=name, chips=int(entry["chips"]),
-            config=self.config(entry["config"]),
-            traffic=self.traffic(entry["traffic"]),
+            config=self.config(entry["config"]), traffic=traffic,
             end_to_end=[m for m in bench["end_to_end"]
                         if _reported_in(m, name)],
             per_layer=[m for m in bench["per_layer"] if _reported_in(m, name)],
-            limits=self.limits(name))
+            limits=limits)

@@ -3,13 +3,24 @@
 The window keeps what the program returned for a sample of its output
 (``Segment``: a stretch of one stream's output and where it starts). Once
 the window has closed, the reference works out the same stretches from the
-same inputs, and two numbers are compared with the cell's limits
-(``limits/<cell>.json``):
+same inputs, and the numbers the cell's limits name
+(``limits/<cell>.json``) are compared with them, every one:
 
 - ``rel_err``: the worst channel's relative RMS error over every sampled
   stretch, sqrt(sum (y - ref) ** 2 / sum ref ** 2);
 - ``failed``: calls in the window that returned another number of frames
-  than they were given (limit 0).
+  than they were given (limit 0);
+- ``late_pct``, on an open loop (one that records each block's latency):
+  the share (%) of the window's blocks whose output came back more than
+  one block period N / fs after the block was due (``window.late_pct``,
+  the count ``session.late_pct.live`` reads). For a live processor a
+  block back after its deadline is a dropout: right samples, too late.
+  The limit of 50 says that the median block met its deadline
+  (``block_p50_ms.live`` <= N / fs); a run that misses most of its deadlines
+  does not run the deployment. It follows from the deadline, not from
+  readings: the live cells read 0 and at most about 9. A limit of
+  ``late_pct`` on a loop that records no latencies is refused when the
+  cell is loaded.
 
 A NaN reads as failing. The control is the program's own path in the
 precision below the configuration's (its ``control_engine``), judged the

@@ -27,6 +27,10 @@ from portbench import inputs
 from portbench.check import Segment
 from portbench.window import Window, percentile, spin_until
 
+# the window records each block's latency, so a cell's limits may hold
+# ``late_pct``
+RECORDS_LATENCY = True
+
 
 def prepare(run) -> None:
     t = run.traffic

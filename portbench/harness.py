@@ -6,11 +6,13 @@ file under ``TMPDIR``, builds ``StreamProcessor`` and lets the traffic's
 driver warm every shape its window uses; ``setup_s`` runs from process
 start to the window's first call. The program's artifact cache (its
 self-check verdicts among them) lives in the run's own temporary folder,
-so every run does the same set-up, the full self-check included. With ``--trace 1`` a slice of the same
-traffic runs under the profiler after the window. Then the program's state
-is dropped and the reference checks the sample the window kept. The last
-line of standard output is the result; the check's numbers, each beside
-its limit, are the last lines of standard error and the result's last key.
+so every run does the same set-up, the full self-check included. With
+``--trace 1``, and in every run of a cell with an end-to-end metric read
+from the device trace, a slice of the same traffic runs under the profiler
+after the window. Then the program's state is dropped and the reference
+checks the sample the window kept. The last line of standard output is the
+result; the check's numbers, each beside its limit, are the last lines of
+standard error and the result's last key.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 
 from portbench import check, devtrace, inputs, roofline
 from portbench.catalog import Catalog, Cell
-from portbench.window import Window
+from portbench.window import Window, late_pct
 
 # top-level module names a run may not load: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "bfir_tpu")
@@ -88,6 +90,14 @@ def engine_config(cfg: dict, wav: str, overrides: dict):
     files = (ImpulseFileSpec(enabled=True, filename=wav), ImpulseFileSpec(),
              ImpulseFileSpec())
     return EngineConfig(filter=fspec, chain=ChainSpec(files=files), **e)
+
+
+def traces(cell: Cell, trace: int) -> bool:
+    """Whether a run traces a slice of its traffic after the window: with
+    ``--trace 1``, and in every run of a cell with an end-to-end metric read
+    from the device trace."""
+    return bool(trace) or any(m["source"] == "device_trace"
+                              for m in cell.end_to_end)
 
 
 def card_line() -> str:
@@ -192,7 +202,7 @@ def _run(args, catalog, cell, device, tmp, t_start, plant):
     run.setup_s = run.window.t0 - t_start
     log(f"window: {run.window.calls} calls, {run.window.frames} frames, "
         f"{run.window.seconds:.4f} s; setup {run.setup_s:.3f} s")
-    if args.trace:
+    if traces(cell, args.trace):
         if cuda:
             def spanned():
                 run.tracing = True
@@ -203,9 +213,10 @@ def _run(args, catalog, cell, device, tmp, t_start, plant):
 
             run.trace = devtrace.trace_slice(lambda: driver.traced(run))
             log(f"trace: {run.trace}")
-            gaps = devtrace.trace_slice(spanned, host_ops=True)
-            log(f"trace with host ops: {gaps}")
-            run.trace.idle_gaps = gaps.idle_gaps
+            if args.trace:
+                gaps = devtrace.trace_slice(spanned, host_ops=True)
+                log(f"trace with host ops: {gaps}")
+                run.trace.idle_gaps = gaps.idle_gaps
         else:
             log("trace: no device trace without CUDA")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -213,7 +224,7 @@ def _run(args, catalog, cell, device, tmp, t_start, plant):
                    "kind": torch.cuda.get_device_name(device) if cuda
                    else "cpu", "count": cell.chips,
                    "memory_peak_bytes": int(peak)}
-    if run.trace is not None:
+    if args.trace and run.trace is not None:
         device_info.update(busy_s=run.trace.busy_s,
                            window_s=run.trace.window_s)
     if cuda:
@@ -229,6 +240,9 @@ def _run(args, catalog, cell, device, tmp, t_start, plant):
     t_check = time.perf_counter()
     values = {"rel_err": check.rel_err(segments, run.impulse),
               "failed": run.window.failed}
+    late = late_pct(run.window, run.n / run.rate)
+    if late is not None:
+        values["late_pct"] = late
     ok, table = check.verdict(values, cell.limits)
     log(f"check: {len(segments)} stretches, "
         f"{sum(s.out.shape[1] for s in segments)} frames a channel, "
@@ -236,7 +250,7 @@ def _run(args, catalog, cell, device, tmp, t_start, plant):
     result = {"correct": ok, "attempted": run.window.calls,
               "failed": run.window.failed, "metrics": metrics,
               "device": device_info}
-    if run.trace is not None:
+    if args.trace and run.trace is not None:
         result["breakdown"] = {"device_ops": run.trace.device_ops,
                                "idle_gaps": run.trace.idle_gaps}
     result["check"] = table

@@ -1,12 +1,9 @@
 """``session.late_pct.live``: the share (%) of the window's blocks whose
 output came back after their deadline, one block period after they were
-due."""
+due (``window.late_pct``, the same count the check holds to its limit)."""
 
-import numpy as np
+from portbench.window import late_pct
 
 
 def read(run):
-    lat = np.asarray(run.window.latency_s)
-    if not lat.size:
-        return None
-    return 100.0 * float(np.mean(lat > run.n / run.rate))
+    return late_pct(run.window, run.n / run.rate)

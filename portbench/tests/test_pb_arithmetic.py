@@ -10,7 +10,7 @@ import pytest
 from portbench.catalog import Catalog
 from portbench.inputs import Pool
 from portbench.roofline import Uniform, bound, geometry
-from portbench.window import Reservoir, Window
+from portbench.window import Reservoir, Window, late_pct
 
 PERIOD_FRAMES = 64
 RATE = 44100
@@ -94,7 +94,7 @@ def test_live_due_times_and_a_planted_stall():
     assert lat[101] > 4 * period and lat[102] > 3 * period
     assert (np.abs(starts[:100] - due[:100]) < 0.5 * period).mean() > 0.9
     p99 = _read("block_p99_ms", run)
-    p50 = _read("block_p50_ms", run)
+    p50 = _read("block_p50_ms.live", run)
     assert p50 < period * 1e3 < p99
     assert _read("session.late_pct.live", run) == pytest.approx(
         100 * np.mean(lat > period))
@@ -147,3 +147,22 @@ def test_window_record_counts_failures():
     w.record(64, 64)
     w.record(64, 0)
     assert (w.calls, w.frames, w.failed) == (2, 64, 1)
+
+
+def test_late_pct_counts_blocks_past_one_period():
+    period = PERIOD_FRAMES / RATE
+    w = Window(t0=0.0)
+    assert late_pct(w, period) is None  # a closed loop records none
+    # a block back exactly one period after it was due met its deadline
+    w.latency_s = [0.5 * period, period, 1.5 * period, 3 * period]
+    assert late_pct(w, period) == 50.0
+
+
+def test_card_ms_per_block_is_kernel_time_over_blocks():
+    from portbench import devtrace
+
+    run = SimpleNamespace(trace=None)
+    assert _read("card_ms_per_block", run) is None  # no trace, no value
+    run.trace = devtrace.summarize([], [], 1.0, 64)
+    run.trace.kernel_s, run.trace.busy_s = 0.0032, 0.004  # copies out
+    assert _read("card_ms_per_block", run) == pytest.approx(0.05)

@@ -17,8 +17,8 @@ from conftest import TINY_TRAFFIC
 CELL = "atmos64_f32.live"
 NEW = ("engine.device_ms_per_block.live", "engine.nu_roofline_pct.live",
        "engine.head_host_ms_per_block.live",
-       "engine.tail_host_ms_per_fire.live")
-SHARED = ("block_p99_ms", "session.late_pct.live",
+       "engine.tail_host_ms_per_fire.live", "engine.head_replay_pct.live")
+SHARED = ("block_p99_ms", "block_p50_ms.live", "session.late_pct.live",
           "session.launches_per_block.live", "session.host_ms_per_block.live",
           "session.fetch_ms_per_block.live", "engine.host_ms_per_block.live",
           "engine.idle_ms_per_block.live")
@@ -38,14 +38,14 @@ def test_the_cell_loads_through_the_catalog():
     assert cell.chips == 1 and cell.traffic["loop"] == "live"
     # one 128-frame block due every 2.667 ms: 375 calls a second
     assert cfg["sample_rate"] * cell.traffic["pace"] / 128 == 375
-    assert set(cell.limits) == {"rel_err", "failed"}
-    assert cell.limits["failed"] == 0
-    assert {m["name"] for m in cell.end_to_end} == {"block_p50_ms",
+    assert set(cell.limits) == {"rel_err", "failed", "late_pct"}
+    assert cell.limits["failed"] == 0 and cell.limits["late_pct"] == 50
+    assert {m["name"] for m in cell.end_to_end} == {"card_ms_per_block",
                                                      "setup_s"}
     per_layer = {m["name"] for m in cell.per_layer}
     assert per_layer == set(NEW) | set(SHARED)
     for m in cell.per_layer:
-        assert m["moves"] == "block_p50_ms"
+        assert m["moves"] == "card_ms_per_block"
         assert callable(cat.reader(m["name"]).read)
     # the plugin's cells keep their own metrics: the new ones list this
     # cell alone

@@ -64,7 +64,11 @@ def test_every_piece_is_found_by_name(bench):
         drv = cat.driver(cell.traffic["loop"])
         for fn in ("prepare", "warm", "window", "traced", "segments"):
             assert callable(getattr(drv, fn))
-        assert set(cell.limits) == {"rel_err", "failed"}
+        # an open loop's cell is held to its deadline too, a closed one's
+        # cannot be
+        late = {"late_pct"} if drv.RECORDS_LATENCY else set()
+        assert set(cell.limits) == {"rel_err", "failed"} | late
+        assert cell.limits.get("late_pct", 50) == 50
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(cat.reader(m["name"]).read)
 

@@ -30,5 +30,10 @@ def test_cell_and_its_control_on_the_card(cuda_card, cell):
     sound = _run(cell, 2 ** 31 + 7)
     assert sound["correct"], sound["check"]
     assert sound["device"]["platform"] == "gpu"
+    # the live cell is held to its deadline; the stream has none
+    assert ("late_pct" in sound["check"]) == cell.endswith(".live")
+    # and reports the card's time a block, from a trace after the window
+    assert ("card_ms_per_block" in sound["metrics"]) == cell.endswith(
+        ".live")
     control = _run(cell, 2 ** 31 + 7, "--control")
     assert not control["correct"], control["check"]

@@ -2,6 +2,7 @@
 skipped): sound runs come out correct, and the control and each fault
 planted under the timed path come out not correct."""
 
+import json
 import time
 
 import pytest
@@ -26,7 +27,15 @@ def test_sound_run_is_correct(tiny_root, cell):
     assert list(r)[-1] == "check"
     assert r["check"]["rel_err"]["value"] < 1e-13
     assert {"setup_s", "realtime_x"} <= set(r["metrics"])
-    assert r["device"]["count"] == 1
+    # no card, no device trace: its end-to-end metric is left out
+    assert "card_ms_per_block" not in r["metrics"]
+    assert r["device"]["count"] == 1 and "busy_s" not in r["device"]
+    # the live cell's blocks met their deadlines; the stream has none
+    late = r["check"].get("late_pct")
+    if cell == "tiny.tiny_live":
+        assert late["value"] <= late["limit"] == 50
+    else:
+        assert late is None
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -85,5 +94,58 @@ def test_planted_fault_is_not_correct(tiny_root, cell, fault):
 def test_trace_run_reports_per_layer_metrics(tiny_root):
     r = _run(tiny_root, "tiny.tiny_live", "--trace", "1")
     # without a card there is no device trace: only the window's readers
-    assert set(r["metrics"]) == {"block_p99_ms", "session.late_pct.live"}
+    assert set(r["metrics"]) == {"block_p99_ms", "block_p50_ms.live",
+                                 "session.late_pct.live"}
     assert "breakdown" not in r and r["correct"]
+
+
+def _slow_step(run, every=1):
+    """Every ``every``-th block's step takes twice the block period: right
+    samples, after their deadline."""
+    obj, name = _stepper(run)
+    step = getattr(obj, name)
+    period = run.n / run.rate
+    calls = [0]
+
+    def slow(*a):
+        calls[0] += 1
+        if calls[0] % every == 0:
+            time.sleep(2 * period)
+        return step(*a)
+
+    setattr(obj, name, slow)
+
+
+def test_a_live_run_late_on_most_blocks_is_not_correct(tiny_root):
+    r = _run(tiny_root, "tiny.tiny_live", plant=_slow_step)
+    check = r["check"]
+    assert not r["correct"], check
+    assert check["late_pct"]["value"] > check["late_pct"]["limit"] == 50
+    # late, not wrong
+    assert check["rel_err"]["value"] <= check["rel_err"]["limit"]
+    assert r["failed"] == 0
+
+
+def test_late_pct_on_a_closed_loop_fails_at_load(tiny_root):
+    limits = tiny_root / "portbench" / "limits" / "tiny.tiny_stream.json"
+    limits.write_text(json.dumps({"rel_err": 1e-10, "failed": 0,
+                                  "late_pct": 50}))
+    with pytest.raises(ValueError, match="late_pct.*'stream'"):
+        Catalog([str(tiny_root)]).cell("tiny.tiny_stream")
+
+
+def test_check_and_reader_count_the_same_late_blocks(tiny_root):
+    r = _run(tiny_root, "tiny.tiny_live", "--trace", "1",
+             plant=lambda run: _slow_step(run, every=8))
+    late = r["check"]["late_pct"]["value"]
+    assert late > 0
+    assert r["metrics"]["session.late_pct.live"]["value"] == late
+
+
+@pytest.mark.parametrize("cell,trace,traced", [
+    ("plugin8_f64.live", 0, True), ("atmos64_f32.live", 0, True),
+    ("plugin8_f64.stream", 0, False), ("plugin8_f64.stream", 1, True)])
+def test_device_trace_metric_traces_every_run(cell, trace, traced):
+    # the live cells' card_ms_per_block comes from a trace after the window
+    # in their --trace 0 runs too; the stream traces only with --trace 1
+    assert harness.traces(Catalog().cell(cell), trace) is traced

@@ -6,7 +6,7 @@ from __future__ import annotations
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -71,6 +71,17 @@ def log_calls(w: Window, what: str) -> None:
           f"p90 {percentile(took, 90):.3f}, max {took.max():.3f}; mean of "
           "each tenth of the window "
           + " ".join(f"{p.mean():.2f}" for p in parts), file=sys.stderr)
+
+
+def late_pct(w: Window, period_s: float) -> Optional[float]:
+    """The share (%) of the window's blocks that came back late: whose
+    latency exceeds one block period ``period_s`` (N / fs), so their
+    output missed its deadline. None where the window recorded no
+    per-block latencies (a closed loop)."""
+    lat = np.asarray(w.latency_s)
+    if not lat.size:
+        return None
+    return 100.0 * float(np.mean(lat > period_s))
 
 
 def spin_until(t: float) -> None:
